@@ -1,5 +1,5 @@
-"""cape_tpu_torch — the CAPE serving path in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a).
+"""cape_tpu_torch — CAPE serving and training in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of `cape_tpu` (JAX/XLA/Pallas on a TPU), module for module: each
 module here has the same name and layout as its counterpart there, and
@@ -11,8 +11,11 @@ Layout:
   core/      config dataclass and preset reader, initializers, JAX bridge
   ops/       banded operators, graph context, Chebyshev conv and its kernel
   csrc/      CUDA C++ sources, built at first use by ops/kernels/build.py
-  models/    the CAPE generator (condition nets, encoder, decoder)
-  apps/      inference engine, checkpoint restore, HTTP model server
+  models/    the CAPE model (condition nets, encoder, decoder, discriminator)
+  losses.py  the training losses
+  train/     schedules, the G/D optimizer, the GAN step, checkpoints, Trainer
+  data/      the packed-dataset wrapper, batch streams, synthetic data
+  apps/      inference engine, checkpoint restore, HTTP model server, CLI
 """
 
 __version__ = "0.1.0"

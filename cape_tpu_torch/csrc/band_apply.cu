@@ -1,13 +1,18 @@
 // Banded shifted-block apply for Hopper (sm_90a), batch-major.
 //
 //   y[b, t*128 + i, c] = sum_k sum_j blocks[k, t, i, j] * x[b, (t+k)*128 + j - pad_left, c]
+//                        (+ r[b, t*128 + i, c] when an addend r is given)
 //
 // for output rows t*128 + i < rows_out; rows of x outside [0, rows_in) read
 // as zero (masked here, never read out of bounds).
 //
 // Replaces the TPU kernel `_pallas_band_apply_v2` (cape_tpu/ops/pallas/
 // cheb_kernel.py, body `_kernel_v2`), which the large-batch K=2 Chebyshev
-// conv `cheb2_banded_pallas_v3` runs on its forward pass. The TPU version
+// conv `cheb2_banded_pallas_v3` runs in both directions: in its forward pass
+// (y = L~x, no addend) and in its backward pass `_v3_bwd`, where the input
+// gradient dx = g W0^T + L~(g W1^T) is this apply of g W1^T with the addend
+// r = g W0^T, read in the epilogue so that dx is written once (L~ is
+// symmetric, so the forward blocks serve the transpose). The TPU version
 // transposes activations to vertex-major [V, B*C] to fill its 128-lane
 // tiles and walks the S band shifts as a sequential grid axis that carries
 // an f32 scratch sum. Here the kernel reads and writes batch-major [B, P, C]
@@ -19,8 +24,9 @@
 // columns per thread) and steps over S shifts x 4 slabs of KC=32 band
 // columns: each step stages a 128x32 slab of blocks[k, t] and the matching
 // 32 x 64 rows of x in shared memory (both as f32), then runs 32 FMAs per
-// thread per band column. Accumulation is f32 in every dtype; the output is
-// rounded once to x's dtype (f32 or bf16).
+// thread per band column. Accumulation is f32 in every dtype; the addend is
+// added in f32 and the output is rounded once to x's dtype (f32 or bf16).
+// The addend costs one more read of the output's size, in the epilogue.
 //
 // What bounds it: the blocks are dense 128x128 tiles of a mesh Laplacian
 // that is about 1% non-zero (~6 neighbours per row against S*128 = 640
@@ -57,8 +63,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-band_apply_kernel(const T* __restrict__ x, const T* __restrict__ blocks, T* __restrict__ y,
-                  int rows_in, int C, int M, int S, int n_tiles, int pad_left, int rows_out) {
+band_apply_kernel(const T* __restrict__ x, const T* __restrict__ blocks,
+                  const T* __restrict__ addend, T* __restrict__ y, int rows_in, int C,
+                  int M, int S, int n_tiles, int pad_left, int rows_out) {
   __shared__ float As[RB][KC + 1];   // +1: rows 16 apart fall in different banks
   __shared__ float Xs[KC][NT];
 
@@ -124,7 +131,11 @@ band_apply_kernel(const T* __restrict__ x, const T* __restrict__ blocks, T* __re
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
       const int row = t * RB + ty + 16 * r;
-      if (row < rows_out) y[base + (int64_t)row * C] = from_f32<T>(acc[r][c]);
+      if (row >= rows_out) continue;
+      const int64_t at = base + (int64_t)row * C;
+      float v = acc[r][c];
+      if (addend != nullptr) v += to_f32(addend[at]);
+      y[at] = from_f32<T>(v);
     }
   }
 }
@@ -132,10 +143,11 @@ band_apply_kernel(const T* __restrict__ x, const T* __restrict__ blocks, T* __re
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x [B, rows_in, C], blocks [S, n_tiles,
-// 128, 128] and y [B, rows_out, C] are contiguous, in that dtype, on the
-// device of `stream`. Returns the launch's cudaError_t (0 = launched).
-extern "C" int cape_band_apply(const void* x, const void* blocks, void* y, int dtype,
-                               int B, int rows_in, int C, int S, int n_tiles,
+// 128, 128], y [B, rows_out, C] and the optional addend (nullptr for none;
+// else [B, rows_out, C], not aliasing y) are contiguous, in that dtype, on
+// the device of `stream`. Returns the launch's cudaError_t (0 = launched).
+extern "C" int cape_band_apply(const void* x, const void* blocks, const void* addend,
+                               void* y, int dtype, int B, int rows_in, int C, int S, int n_tiles,
                                int pad_left, int rows_out, void* stream) {
   if (B <= 0 || C <= 0 || S <= 0 || n_tiles <= 0 || rows_in < 0 || pad_left < 0 ||
       rows_out <= 0 || rows_out > n_tiles * RB)
@@ -146,11 +158,13 @@ extern "C" int cape_band_apply(const void* x, const void* blocks, void* y, int d
   if (dtype == 0) {
     band_apply_kernel<float><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(blocks),
-        static_cast<float*>(y), rows_in, C, M, S, n_tiles, pad_left, rows_out);
+        static_cast<const float*>(addend), static_cast<float*>(y),
+        rows_in, C, M, S, n_tiles, pad_left, rows_out);
   } else if (dtype == 1) {
     band_apply_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(blocks),
-        static_cast<__nv_bfloat16*>(y), rows_in, C, M, S, n_tiles, pad_left, rows_out);
+        static_cast<const __nv_bfloat16*>(addend), static_cast<__nv_bfloat16*>(y),
+        rows_in, C, M, S, n_tiles, pad_left, rows_out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,12 +1,11 @@
-"""The CAPE generator for serving: condition nets, encoder, decoder.
+"""The CAPE model: condition nets, encoder, decoder and discriminator.
 
 Counterpart of `cape_tpu.models.cape` for the flagship family (plain conv
 encoder, affine decoder, folded conditions, banded operators). Parameters
 live in the module under the JAX package's key paths
 (`generator.decoder.layer0.conv.w`), so `core.bridge` maps a JAX param tree
-or checkpoint onto `load_state_dict` without renaming. The discriminator's
-parameters are created too (the bridge is total), but `discriminate` is
-part of training and is not ported yet.
+or checkpoint onto `load_state_dict` without renaming. They are trainable;
+serving runs under `torch.inference_mode()` (apps.inference).
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from cape_tpu_torch.core.params import (
 )
 from cape_tpu_torch.models import blocks
 from cape_tpu_torch.ops.banded import padded_size
-from cape_tpu_torch.ops.cheb import cheb_conv_folded
+from cape_tpu_torch.ops.cheb import cheb_conv, cheb_conv_folded
 from cape_tpu_torch.ops.sparse import GraphContext
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -63,6 +62,8 @@ def unsupported(cfg: CAPEConfig) -> list[str]:
         missing.append("fold_conditions=False (materialized condition concat)")
     if cfg.compute_dtype not in DTYPES:
         missing.append(f"compute_dtype={cfg.compute_dtype!r}")
+    if cfg.remat:
+        missing.append("remat (recomputed block activations)")
     return missing
 
 
@@ -76,7 +77,7 @@ class ParamTree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def tree(self) -> dict:
         out = {k: m.tree() for k, m in self.named_children()}
@@ -254,8 +255,36 @@ class CAPE(nn.Module):
         clamp of logvar inside the exp. eps is given by the caller."""
         return z_mean + torch.exp(0.5 * torch.clamp(z_logvar, -30.0, 30.0)) * eps
 
-    def discriminate(self, ctx, x, y, y2):
-        raise NotImplementedError(
-            "CAPE.discriminate is part of training and is not ported to "
-            "cape_tpu_torch yet"
-        )
+    def generate(self, ctx: GraphContext, x, y, y2, eps):
+        """Full CVAE forward with the caller's noise eps [B, nz].
+        Returns (x_hat, z_mean, z_logvar, z)."""
+        z_mean, z_logvar = self.encode(ctx, x, y, y2)
+        z = self.sample_z(z_mean, z_logvar, eps.to(z_mean.dtype))
+        x_hat = self.decode(ctx, torch.cat([z, y, y2], dim=-1), y, y2)
+        return x_hat, z_mean, z_logvar, z
+
+    # --------------------------------------------------------- discriminator
+    def discriminate(self, ctx: GraphContext, x, y, y2, detach_params: bool = False):
+        """Per-vertex real/fake logits on the coarsest ds2 level [B, 431, 1].
+        detach_params=True runs on detached discriminator parameters (the G
+        loss's view of D: JAX's stop_gradient on params['discriminator']).
+        The Kd=3 layer convs take the plain path; the final `pred` conv has
+        the VAE's order K (the reference's quirk), so at batch 32 the gate
+        sends it to the kernel."""
+        disc = self.params["discriminator"]
+        if detach_params:
+            disc = {k: {n: t.detach() for n, t in p.items()} for k, p in disc.items()}
+        x = x.to(self.dtype)
+        if ctx.padded:
+            x = _pad_vertex_rows(x)
+        for i in range(len(ctx.down_d)):
+            lap, down = ctx.lap_d[i], ctx.down_d[i]
+            p = disc[f"layer{i}"]
+            if i == 0:
+                x = blocks.conv_block_folded_apply(p, x, [y, y2], lap, down, self.act)
+            else:
+                x = blocks.conv_block_apply(p, x, lap, down, self.act)
+        x = cheb_conv(x, ctx.lap_d[-1], disc["pred"]["w"])
+        if ctx.padded:
+            x = x[:, : ctx.level_sizes_d[-1], :]  # exit the padded layout
+        return x

@@ -8,9 +8,14 @@ t * col_stride, so the apply is
     y_tiles = sum_k  blocks[k] @ shifted_view_k(x_padded)
 
 with static slices and batched matmuls. In the JAX package this apply is
-XLA code, so here it stays plain torch. The one kernel on the serving path
+XLA code, so here it stays plain torch. The band-apply kernel
 (`ops.kernels.cheb_kernel.band_apply`) is reached only through the routing
 gate in `ops.cheb`, as in JAX.
+
+The apply is a `torch.autograd.Function` whose backward applies the
+transpose, packed in the same banded form (`t_blocks`), as the JAX custom
+VJP does: autograd's own backward of the shifted einsum would build
+layout-transposed copies of every shifted view.
 """
 
 from __future__ import annotations
@@ -45,6 +50,24 @@ def apply_blocks(x, blocks, pad_left, pad_right, n_rows, padded=False):
     return y if padded else y[..., :n_rows, :]
 
 
+class BandedMatvec(torch.autograd.Function):
+    """y = M x through `apply_blocks`; the backward is dx = M^T g with the
+    transpose packing. In the padded layout g's tail rows are zero wherever
+    the output feeds a banded op or a slice back to the natural layout
+    (both have zero-tail backward passes), as in JAX's `_banded_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op = op
+        return apply_blocks(x, op.blocks, op.pad_left, op.pad_right, op.n_rows, op.padded)
+
+    @staticmethod
+    def backward(ctx, g):
+        op = ctx.op
+        dx = apply_blocks(g, op.t_blocks, op.t_pad_left, op.t_pad_right, op.n_cols, op.padded)
+        return dx, None
+
+
 def padded_size(n: int, block: int = 128) -> int:
     """Row count of the persistent-padded layout for a natural size n."""
     return -(-n // block) * block
@@ -57,18 +80,18 @@ class BandedOp:
     padded=False: x [.., n_cols, C] -> y [.., n_rows, C] (natural layout).
     padded=True:  x [.., p_cols, C] -> y [.., p_rows, C] (persistent-padded
     layout; tail input rows are ignored, tail output rows are zero).
-    The transpose packing of the JAX op serves its backward pass and is
-    left out of this forward-only port.
     """
 
     blocks: torch.Tensor                               # [S, T, rb, cb]
+    t_blocks: torch.Tensor                             # transpose packing
     n_rows: int
     n_cols: int
     row_block: int
     col_block: int                                     # == col stride per row tile
     pad_left: int
     pad_right: int
-    p_cols: int                                        # padded input rows
+    t_pad_left: int
+    t_pad_right: int
     padded: bool = False
     allow_pallas: bool = True
 
@@ -78,13 +101,15 @@ class BandedOp:
                 f"padded BandedOp expects {self.p_cols} input rows, "
                 f"got {x.shape[-2]} (natural {self.n_cols})"
             )
-        return apply_blocks(
-            x, self.blocks, self.pad_left, self.pad_right, self.n_rows, self.padded
-        )
+        return BandedMatvec.apply(x, self)
 
     @property
     def p_rows(self) -> int:
         return self.blocks.shape[1] * self.row_block
+
+    @property
+    def p_cols(self) -> int:
+        return self.t_blocks.shape[1] * self.row_block
 
     @property
     def pallas_eligible(self) -> bool:
@@ -93,7 +118,9 @@ class BandedOp:
         return self.n_rows == self.n_cols and self.row_block == 128 and self.col_block == 128
 
     def to(self, device) -> "BandedOp":
-        return dataclasses.replace(self, blocks=self.blocks.to(device))
+        return dataclasses.replace(
+            self, blocks=self.blocks.to(device), t_blocks=self.t_blocks.to(device)
+        )
 
 
 def _pack_blocks(csr: sp.csr_matrix, row_block: int):
@@ -131,21 +158,25 @@ def banded_from_scipy(
     m: sp.spmatrix, row_block: int = 128, dtype=torch.float32,
     padded: bool = False, allow_pallas: bool = True, device="cpu",
 ) -> BandedOp:
-    """Pack a (pre-permuted) banded sparse matrix into shifted block form.
-    padded=True builds the op in the persistent-padded layout."""
+    """Pack a (pre-permuted) banded sparse matrix and its transpose into
+    shifted block form. padded=True builds the op in the persistent-padded
+    layout."""
     csr = sp.csr_matrix(m)
     R, C = csr.shape
     blocks, cb, pad_left, pad_right = _pack_blocks(csr, row_block)
+    t_blocks, _, t_pad_left, t_pad_right = _pack_blocks(sp.csr_matrix(m.T), row_block)
+    as_tensor = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
     return BandedOp(
-        blocks=torch.as_tensor(blocks).to(device=device, dtype=dtype),
+        blocks=as_tensor(blocks),
+        t_blocks=as_tensor(t_blocks),
         n_rows=R,
         n_cols=C,
         row_block=row_block,
         col_block=cb,
         pad_left=pad_left,
         pad_right=pad_right,
-        # the JAX op reads this off its transpose packing: T of M^T, in rows
-        p_cols=padded_size(C, row_block),
+        t_pad_left=t_pad_left,
+        t_pad_right=t_pad_right,
         padded=padded,
         allow_pallas=allow_pallas,
     )

@@ -64,7 +64,7 @@ def band_apply_lib() -> ctypes.CDLL:
     """The band-apply kernel's library, built on first use."""
     lib = ctypes.CDLL(str(build("band_apply")))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cape_band_apply.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.cape_band_apply.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.cape_band_apply.restype = i
     lib.cape_cuda_error_string.argtypes = [i]
     lib.cape_cuda_error_string.restype = ctypes.c_char_p

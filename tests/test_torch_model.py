@@ -45,6 +45,17 @@ def _jax_ctx(small_mesh, pyramids, padded=True):
     )
 
 
+def _ctx(small_mesh, pyramids, **kw):
+    """The port's context of the icosphere pyramids (padded layout)."""
+    from cape_tpu.meshops.topology import vertices_per_edge
+    from cape_tpu_torch.ops.sparse import build_graph_context
+
+    verts, faces = small_mesh
+    return build_graph_context(
+        *pyramids, vertices_per_edge(faces, len(verts)), verts, padded=True, **kw
+    )
+
+
 def _jax_params(model, ctx, seed):
     """A JAX param tree of the model's structure (jax.eval_shape of its
     init), filled with numpy draws: cheaper than running the init."""
@@ -68,11 +79,9 @@ def _flat(tree, prefix=""):
 def test_bridge_round_trip_is_bit_equal(small_mesh, pyramids):
     """JAX params -> port state dict -> module -> JAX layout, bit for bit,
     over every leaf (the discriminator's included)."""
-    from cape_tpu_torch.ops.sparse import build_graph_context
-
     jctx = _jax_ctx(small_mesh, pyramids)
     jparams = _jax_params(JaxCAPE(JaxConfig(**SMALL)), jctx, 3)
-    ctx = build_graph_context(*pyramids, padded=True)
+    ctx = _ctx(small_mesh, pyramids)
     model = CAPE(CAPEConfig(**SMALL)).init_params(torch.Generator().manual_seed(0), ctx)
     missing, unexpected = model.load_state_dict(from_jax_params(jparams), strict=True)
     assert not missing and not unexpected
@@ -116,7 +125,6 @@ def test_model_matches_jax_on_kernel_route(small_mesh, pyramids, monkeypatch, co
     import cape_tpu.ops.cheb as jax_cheb
     from cape_tpu_torch.ops import cheb
     from cape_tpu_torch.ops.kernels import cheb_kernel
-    from cape_tpu_torch.ops.sparse import build_graph_context
 
     B = 4
     for mod in (jax_cheb, cheb):
@@ -126,7 +134,7 @@ def test_model_matches_jax_on_kernel_route(small_mesh, pyramids, monkeypatch, co
     jctx = _jax_ctx(small_mesh, pyramids)
     jmodel = JaxCAPE(JaxConfig(**kw))
     jparams = _jax_params(jmodel, jctx, 1)
-    ctx = build_graph_context(*pyramids, padded=True)
+    ctx = _ctx(small_mesh, pyramids)
     model = CAPE(CAPEConfig(**kw)).init_params(torch.Generator().manual_seed(0), ctx)
     model.load_state_dict(from_jax_params(jparams))
 
@@ -164,13 +172,12 @@ def test_model_matches_jax_on_kernel_route(small_mesh, pyramids, monkeypatch, co
 
 
 @pytest.mark.parametrize("kernel_route", [False, True])
-def test_bf16_forward_tracks_f32(pyramids, monkeypatch, kernel_route):
+def test_bf16_forward_tracks_f32(small_mesh, pyramids, monkeypatch, kernel_route):
     """compute_dtype=bfloat16 (bf16 activations and band blocks) on either
     route stays within 5% of max|f32| of the f32 forward: the rounding of
     bf16 (8 mantissa bits) over ~20 layers, not a wrong path."""
     from cape_tpu_torch.models.cape import DTYPES
     from cape_tpu_torch.ops import cheb
-    from cape_tpu_torch.ops.sparse import build_graph_context
 
     if kernel_route:
         monkeypatch.setattr(cheb, "VM_MIN_BATCH", 2)
@@ -178,7 +185,7 @@ def test_bf16_forward_tracks_f32(pyramids, monkeypatch, kernel_route):
     outs = {}
     for dtype in ("float32", "bfloat16"):
         cfg = CAPEConfig(**SMALL, compute_dtype=dtype)
-        ctx = build_graph_context(*pyramids, padded=True, dtype=DTYPES[dtype])
+        ctx = _ctx(small_mesh, pyramids, dtype=DTYPES[dtype])
         model = CAPE(cfg).init_params(torch.Generator().manual_seed(4), ctx)
         rng = np.random.default_rng(5)
         x = torch.from_numpy((0.05 * rng.standard_normal((2, ctx.level_sizes[0], 3))).astype(np.float32))
@@ -200,7 +207,7 @@ def test_bf16_forward_tracks_f32(pyramids, monkeypatch, kernel_route):
     [
         {"op_mode": "ell"}, {"use_res_block": True}, {"affine": False},
         {"use_res_block_dec": False}, {"fuse_decoder": True},
-        {"fold_conditions": False},
+        {"fold_conditions": False}, {"remat": True},
     ],
 )
 def test_unported_configs_raise(change):
@@ -208,6 +215,14 @@ def test_unported_configs_raise(change):
         CAPE(CAPEConfig(**dict(SMALL, **change)))
 
 
-def test_discriminate_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CAPE(CAPEConfig(**SMALL)).discriminate(None, None, None, None)
+def test_discriminate_raises(small_mesh, pyramids):
+    """discriminate refuses a mesh whose vertex count is not the context's
+    (the padded operators check their row counts) instead of computing on
+    misaligned rows."""
+    ctx = _ctx(small_mesh, pyramids)
+    model = CAPE(CAPEConfig(**SMALL)).init_params(torch.Generator().manual_seed(0), ctx)
+    y, y2 = torch.zeros(2, SMALL["nz_cond"]), torch.zeros(2, SMALL["nz_cond2"])
+    assert model.discriminate(ctx, torch.zeros(2, ctx.level_sizes[0], 3), y, y2).shape == (
+        2, ctx.level_sizes_d[-1], 1)
+    with pytest.raises(ValueError, match="padded BandedOp expects"):
+        model.discriminate(ctx, torch.zeros(2, ctx.level_sizes[0] + 200, 3), y, y2)

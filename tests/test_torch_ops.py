@@ -39,9 +39,11 @@ def _assert_same_packing(jax_op, m):
 
     op = banded_from_scipy(m)
     np.testing.assert_array_equal(op.blocks.numpy(), np.asarray(jax_op.blocks))
+    np.testing.assert_array_equal(op.t_blocks.numpy(), np.asarray(jax_op.t_blocks))
     assert (op.pad_left, op.pad_right, op.col_block, op.n_rows, op.n_cols) == (
         jax_op.pad_left, jax_op.pad_right, jax_op.col_block, jax_op.n_rows, jax_op.n_cols
     )
+    assert (op.t_pad_left, op.t_pad_right) == (jax_op.t_pad_left, jax_op.t_pad_right)
     assert op.p_cols == jax_op.p_cols and op.p_rows == jax_op.p_rows
     assert op.pallas_eligible == jax_op.pallas_eligible
 
@@ -49,7 +51,7 @@ def _assert_same_packing(jax_op, m):
 def test_pack_blocks_matches_jax_on_every_flagship_operator(flagship_ctx):
     """Every banded operator of the JAX flagship context (VAE pyramid,
     discriminator pyramid, edge operator) packs identically in the port:
-    blocks, S/T/cb, pads."""
+    blocks and their transpose packing, S/T/cb, pads."""
     from cape_tpu.meshops.ordering import permute_pyramid, pyramid_orderings
     from cape_tpu.ops.banded import BandedOp as JaxBandedOp
     from cape_tpu.ops.sparse import _edge_incidence
@@ -74,12 +76,20 @@ def test_pack_blocks_matches_jax_on_every_flagship_operator(flagship_ctx):
     _assert_same_packing(flagship_ctx.edge_op, _edge_incidence(edges, len(verts), True))
     assert n >= 20
 
-    # the port's own context holds the same VAE operators, in the same order
-    ctx = build_graph_context(pyr, pyr_d)
+    # the port's own context holds the same operators and constants, in the
+    # same order
+    ctx = build_graph_context(pyr, pyr_d, assets.smpl_edges(), verts)
     np.testing.assert_array_equal(ctx.perm0, np.asarray(flagship_ctx.perm0))
     assert ctx.level_sizes == flagship_ctx.level_sizes
     assert ctx.level_sizes_d == flagship_ctx.level_sizes_d
-    for field in ("lap", "down", "up"):
+    np.testing.assert_array_equal(ctx.edges.numpy(), np.asarray(flagship_ctx.edges))
+    np.testing.assert_array_equal(ctx.template_verts.numpy(),
+                                  np.asarray(flagship_ctx.template_verts))
+    np.testing.assert_array_equal(ctx.loss_mask.numpy(), np.asarray(flagship_ctx.loss_mask))
+    np.testing.assert_array_equal(ctx.edge_op.blocks.numpy(),
+                                  np.asarray(flagship_ctx.edge_op.blocks))
+    assert ctx.edge_op.col_block == 43 and not ctx.edge_op.padded
+    for field in ("lap", "down", "up", "lap_d", "down_d"):
         for op, jax_op in zip(getattr(ctx, field), getattr(flagship_ctx, field), strict=True):
             if isinstance(op, IdentityOp):
                 assert not isinstance(jax_op, JaxBandedOp)
@@ -100,10 +110,11 @@ def test_banded_apply_matches_jax(flagship_ctx, padded):
         assert isinstance(jop, JaxBandedOp)
         jop = jop.replace(padded=padded)
         op = BandedOp(
-            blocks=torch.tensor(np.asarray(jop.blocks)), n_rows=jop.n_rows,
+            blocks=torch.tensor(np.asarray(jop.blocks)),
+            t_blocks=torch.tensor(np.asarray(jop.t_blocks)), n_rows=jop.n_rows,
             n_cols=jop.n_cols, row_block=jop.row_block, col_block=jop.col_block,
-            pad_left=jop.pad_left, pad_right=jop.pad_right, p_cols=jop.p_cols,
-            padded=padded,
+            pad_left=jop.pad_left, pad_right=jop.pad_right,
+            t_pad_left=jop.t_pad_left, t_pad_right=jop.t_pad_right, padded=padded,
         )
         rows = jop.p_cols if padded else jop.n_cols
         x = rng.standard_normal((3, rows, 5)).astype(np.float32)
@@ -268,3 +279,106 @@ def test_flagship_kernel_routes(flagship_ctx, flagship_meta, B, n_decode, n_enco
     assert zm.shape == zl.shape == (B, cfg.nz)
     assert cheb.kernel_routes - start == n_encode
     assert cheb_kernel.launches == launches  # meta tensors launch nothing
+
+
+def _torch_op(jop):
+    from cape_tpu_torch.ops.banded import BandedOp
+
+    t = lambda a: torch.tensor(np.asarray(a))
+    return BandedOp(
+        blocks=t(jop.blocks), t_blocks=t(jop.t_blocks), n_rows=jop.n_rows,
+        n_cols=jop.n_cols, row_block=jop.row_block, col_block=jop.col_block,
+        pad_left=jop.pad_left, pad_right=jop.pad_right, t_pad_left=jop.t_pad_left,
+        t_pad_right=jop.t_pad_right, padded=jop.padded,
+    )
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_banded_backward_matches_jax_vjp(flagship_ctx, padded):
+    """The transpose apply of the port's BandedOp (its autograd backward)
+    against jax.vjp of banded_matvec, on a Laplacian, a pool, an unpool, a
+    discriminator pool and the edge operator (natural layout only), f32,
+    tolerance 1e-5 relative. Padded cotangents have zero tail rows, as the
+    model's make them."""
+    import jax
+
+    rng = np.random.default_rng(2)
+    ops = [flagship_ctx.lap[3], flagship_ctx.down[5], flagship_ctx.up[3], flagship_ctx.down_d[1]]
+    if not padded:
+        ops.append(flagship_ctx.edge_op)
+    for jop in ops:
+        jop = jop.replace(padded=padded)
+        op = _torch_op(jop)
+        x = rng.standard_normal((2, jop.p_cols if padded else jop.n_cols, 3)).astype(np.float32)
+        y, vjp = jax.vjp(jop, jnp.asarray(x))
+        g = rng.standard_normal(y.shape).astype(np.float32)
+        if padded:
+            g[:, jop.n_rows:] = 0.0
+        (want,) = vjp(jnp.asarray(g))
+        xt = torch.from_numpy(x).requires_grad_()
+        (got,) = torch.autograd.grad(op(xt), xt, torch.from_numpy(g))
+        want = np.asarray(want)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_cheb2_banded_v3_grads_match_jax_pallas(small_mesh, padded):
+    """The port's large-batch conv as an autograd Function (forward and
+    backward on the band-apply plain version) against jax.grad of the JAX
+    Pallas v3 kernel (interpret mode): y, dx, dW0 and dW1, f32, tolerance
+    1e-5 relative. In the padded layout x's tail rows hold garbage, which
+    the zero tail rows of the cotangent must cancel in dW."""
+    import jax
+
+    from cape_tpu.ops.banded import banded_from_scipy as jax_banded
+    from cape_tpu.ops.pallas.cheb_kernel import cheb2_banded_pallas_v3
+    from cape_tpu_torch.ops.banded import banded_from_scipy
+    from cape_tpu_torch.ops.kernels import cheb_kernel
+
+    Lt = _icosphere_laplacian(small_mesh)
+    jop, op = jax_banded(Lt, padded=padded), banded_from_scipy(Lt, padded=padded)
+    rng = np.random.default_rng(6)
+    rows = op.p_rows if padded else Lt.shape[0]
+    x = rng.standard_normal((3, rows, 5)).astype(np.float32)
+    W = (rng.standard_normal((2, 5, 4)) * 0.3).astype(np.float32)
+    g = rng.standard_normal((3, rows, 4)).astype(np.float32)
+    if padded:
+        x[:, Lt.shape[0]:] = 7.0
+        g[:, Lt.shape[0]:] = 0.0
+    y, vjp = jax.vjp(lambda x, w: cheb2_banded_pallas_v3(x, jop, w), jnp.asarray(x), jnp.asarray(W))
+    want = [np.asarray(a) for a in (y, *vjp(jnp.asarray(g)))]
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(W).requires_grad_()
+    before = (cheb_kernel.launches, cheb_kernel.bwd_launches)
+    yt = cheb_kernel.cheb2_banded_v3(xt, op, wt)
+    got = [yt, *torch.autograd.grad(yt, (xt, wt), torch.from_numpy(g))]
+    assert (cheb_kernel.launches, cheb_kernel.bwd_launches) == before  # CPU: plain version
+    for name, a, b in zip(("y", "dx", "dW"), got, want):
+        assert tuple(a.shape) == b.shape, name
+        np.testing.assert_allclose(a.detach().numpy(), b, rtol=1e-5,
+                                   atol=1e-5 * np.abs(b).max(), err_msg=name)
+
+
+def test_band_apply_plain_addend_and_f64_gradcheck(small_mesh):
+    """band_apply_plain with an addend is the apply plus the addend (one
+    rounding in bf16), and the conv's Function passes gradcheck in f64 on
+    the plain route, with and without an input gradient."""
+    from cape_tpu_torch.ops.banded import banded_from_scipy
+    from cape_tpu_torch.ops.kernels.cheb_kernel import band_apply_plain, cheb2_banded_v3
+
+    rng = np.random.default_rng(3)
+    blocks = torch.from_numpy(rng.standard_normal((3, 4, 128, 128)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 450, 7)).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal((2, 500, 7)).astype(np.float32))
+    torch.testing.assert_close(band_apply_plain(x, blocks, 128, 500, r),
+                               band_apply_plain(x, blocks, 128, 500) + r, rtol=1e-6, atol=1e-5)
+    xb, bb, rb = x.bfloat16(), blocks.bfloat16(), r.bfloat16()
+    want = (band_apply_plain(xb.float(), bb.float(), 128, 500) + rb.float()).bfloat16()
+    torch.testing.assert_close(band_apply_plain(xb, bb, 128, 500, rb), want, rtol=0, atol=0)
+
+    op = banded_from_scipy(_icosphere_laplacian(small_mesh), dtype=torch.float64, padded=True)
+    xd = torch.from_numpy(rng.standard_normal((1, op.p_rows, 2))).requires_grad_()
+    wd = torch.from_numpy(rng.standard_normal((2, 2, 2))).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, w: cheb2_banded_v3(a, op, w), (xd, wd))
+    assert torch.autograd.gradcheck(lambda w: cheb2_banded_v3(xd.detach(), op, w), (wd,))

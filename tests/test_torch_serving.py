@@ -82,7 +82,7 @@ def engines(small_mesh):
     jparams = jax.tree_util.tree_map(
         lambda s: (0.1 * rng.standard_normal(s.shape)).astype(s.dtype), shapes
     )
-    ctx = build_graph_context(pyr, pyr_d, padded=True)
+    ctx = build_graph_context(pyr, pyr_d, vertices_per_edge(faces, len(verts)), verts, padded=True)
     model = CAPE(CAPEConfig(**SMALL)).init_params(torch.Generator().manual_seed(0), ctx)
     model.load_state_dict(from_jax_params(jparams))
 
@@ -246,9 +246,13 @@ def test_restore_params_from_jax_checkpoint(engines, tmp_path):
 
 
 def test_import_loads_no_jax_flax_or_yaml():
+    """Every module of the port imports without jax, flax, optax or yaml."""
     code = (
-        "import sys, cape_tpu_torch.apps.server, cape_tpu_torch.apps.main\n"
-        "print(sorted(m for m in ('jax', 'flax', 'yaml') if m in sys.modules))"
+        "import importlib, pkgutil, sys, cape_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(cape_tpu_torch.__path__, 'cape_tpu_torch.')]\n"
+        "assert 'cape_tpu_torch.train.loop' in names and 'cape_tpu_torch.losses' in names, names\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(sorted(m for m in ('jax', 'flax', 'optax', 'yaml') if m in sys.modules))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, check=True)
