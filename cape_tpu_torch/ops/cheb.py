@@ -5,26 +5,33 @@ recurrence x_k = 2 L~ x_{k-1} - x_{k-2} unrolled (K is static), accumulated
 per order, or in the project-first (Clenshaw) order when Fout < Fin.
 Weight layout [K, Fin, Fout], as in JAX.
 
-The routing gate is the JAX package's, with its constants: a K=2 conv on
-a kernel-eligible banded Laplacian whose op allows it (cfg.use_pallas)
-takes the band-apply kernel route once the batch reaches VM_MIN_BATCH and
-the merged columns B*C reach VM_MIN_COLS. Those thresholds were measured on
-a TPU; they are kept so that both packages route the same convs, and are
-to be recalibrated on the GPU.
+The routing gate is the JAX package's (`cape_tpu/ops/cheb.py`), with its
+constants. A K=2 conv on a kernel-eligible banded Laplacian is allowed a
+kernel route when its op allows it (cfg.use_pallas), unless
+CAPE_TPU_PALLAS overrides that in either direction (`ops.kernels.
+override`). An allowed conv takes the large-batch route (v3) once the
+batch reaches VM_MIN_BATCH and the merged columns B*C reach VM_MIN_COLS;
+below that it takes the small-batch v2 route only when that is opted into
+(`ops.kernels.enabled()`) and the op is in the natural layout. Those
+thresholds were measured on a TPU; they are kept so that both packages
+route the same convs, and are to be recalibrated on the GPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cape_tpu_torch.ops import kernels
 from cape_tpu_torch.ops.banded import BandedOp
 from cape_tpu_torch.ops.kernels import cheb_kernel
 
 VM_MIN_COLS = 2048
 VM_MIN_BATCH = 32
 
-# convs the gate sent to the kernel route (counts meta and CPU calls too)
+# convs the gate sent to the v3 route and to the v2 route (count meta and
+# CPU calls too)
 kernel_routes = 0
+v2_routes = 0
 
 
 def cheb_basis(x: torch.Tensor, lap, K: int) -> list[torch.Tensor]:
@@ -68,19 +75,17 @@ def _cheb_conv_projfirst(x: torch.Tensor, lap, weight: torch.Tensor) -> torch.Te
 
 def cheb_conv(x: torch.Tensor, lap, weight: torch.Tensor) -> torch.Tensor:
     """y = sum_k T_k(L~) x @ W[k]; x: [..., V, Fin], weight [K, Fin, Fout]."""
-    global kernel_routes
+    global kernel_routes, v2_routes
     K = weight.shape[0]
-    if (
-        K == 2
-        and x.dim() == 3
-        and isinstance(lap, BandedOp)
-        and lap.pallas_eligible
-        and lap.allow_pallas
-        and x.shape[0] >= VM_MIN_BATCH
-        and x.shape[0] * x.shape[2] >= VM_MIN_COLS
-    ):
-        kernel_routes += 1
-        return cheb_kernel.cheb2_banded_v3(x, lap, weight)
+    if K == 2 and x.dim() == 3 and isinstance(lap, BandedOp) and lap.pallas_eligible:
+        env = kernels.override()
+        if lap.allow_pallas if env is None else env:
+            if x.shape[0] >= VM_MIN_BATCH and x.shape[0] * x.shape[2] >= VM_MIN_COLS:
+                kernel_routes += 1
+                return cheb_kernel.cheb2_banded_v3(x, lap, weight)
+            if kernels.enabled() and not lap.padded:
+                v2_routes += 1
+                return cheb_kernel.cheb2_banded_v2(x, lap, weight)
     if K > 1 and weight.shape[2] < weight.shape[1]:
         return _cheb_conv_projfirst(x, lap, weight)
     acc = None

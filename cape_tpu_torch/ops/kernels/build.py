@@ -59,13 +59,35 @@ def build(name: str) -> Path:
     return lib
 
 
-@functools.cache
-def band_apply_lib() -> ctypes.CDLL:
-    """The band-apply kernel's library, built on first use."""
-    lib = ctypes.CDLL(str(build("band_apply")))
+def _load(name: str, fn: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
+    """Build csrc/<name>.cu and bind its entry `fn`: n_ptrs pointers, then
+    n_ints ints, then the stream; it returns a cudaError_t."""
+    lib = ctypes.CDLL(str(build(name)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cape_band_apply.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.cape_band_apply.restype = i
+    entry = getattr(lib, fn)
+    entry.argtypes = [p] * n_ptrs + [i] * n_ints + [p]
+    entry.restype = i
     lib.cape_cuda_error_string.argtypes = [i]
     lib.cape_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def band_apply_lib() -> ctypes.CDLL:
+    """The band-apply kernel's library (kernel 2), built on first use."""
+    # x, blocks, addend, y; dtype, B, rows_in, C, S, T, pad_left, rows_out
+    return _load("band_apply", "cape_band_apply", n_ints=8, n_ptrs=4)
+
+
+@functools.cache
+def cheb2_fused_lib() -> ctypes.CDLL:
+    """The fused K=2 conv kernel's library (kernels 1 and 4), built on first use."""
+    # x, blocks, w0, w1, y; dtype, B, rows_in, C, F, S, T, pad_left, rows_out, group
+    return _load("cheb2_fused", "cape_cheb2_fused", n_ints=10, n_ptrs=5)
+
+
+@functools.cache
+def band_apply_bm_lib() -> ctypes.CDLL:
+    """The batch-major band-apply kernel's library (kernel 3), built on first use."""
+    # x, blocks, y; dtype, B, rows_in, C, S, T, cb, pad_left, n_rows
+    return _load("band_apply_bm", "cape_band_apply_bm", n_ints=9, n_ptrs=3)

@@ -5,7 +5,8 @@
 Phases (any failure raises; the script then exits non-zero and prints no
 result line):
   1. device: a CUDA GPU must be present (there is no CPU path); TF32 off.
-  2. build: compile csrc/band_apply.cu with nvcc.
+  2. build: compile the three sources of csrc/ with nvcc, all at once;
+     log ptxas's registers and spills.
   3. kernel: the band-apply kernel against its plain PyTorch version at
      every batch-32 and batch-64 shape of the flagship serving path, one
      natural-layout and one ragged-column case, in f32 and bf16; then its
@@ -21,27 +22,43 @@ result line):
      kernel route; no kernel launch.
   6. golden: the batch-32 decode of tests/data/torch_golden_flagship.npz
      (written by the JAX package) held to 1e-4 * max|ref|.
-  7. times: CUDA events, 3 warm-up calls, median of 20: per-shape kernel
-     against plain, and the batch-32 decode call on both routes.
+  7. times: per-shape kernel against plain, and the batch-32 decode call on
+     both routes. Every time in this script is `perf_lab.time_routes`'s:
+     CUDA events, the routes in turns, each event pair around back-to-back
+     calls, the median over rounds of the mean per call.
   8. train step: two flagship GAN steps at batch 32 (f32, seed-0
      parameters, the synthetic batches and eps of
      tests/data/torch_golden_train.npz) on the kernel route, 17 forward
      and 17 backward launches per step; the same steps on the plain route
      with none; both held to each other and to the JAX golden (metrics
      1e-4 relative, step-2 updates per leaf, see hold_updates).
-  9. train time: CUDA events, 3 warm-up steps, median of 10, both routes.
+  9. train time: both routes in turns, 6 rounds of 2 steps.
  10. train mode: apps.main.run (synthetic n_train=64, 2 epochs of one
      step); restore_params reads its checkpoint bit-equal, and decodes.
-The last two lines are a JSON summary of the kernels and the device line.
+ 11. fused (after phase 3): the fused conv kernel (rows 1 and 4) against
+     its plain version at each flagship K=2 conv shape and C = F = 64, at
+     every square Laplacian, B = 16 and 32, groups 1, 2 and 4, natural and
+     padded, f32 and bf16 (bf16 also against two controls that each drop
+     one of its numerics); times against plain, the v3 route and a copy of
+     L~x, the routes in turns, each event pair around 10 calls.
+ 12. bm (after phase 11): the batch-major band-apply kernel (row 3) against
+     its plain version on every banded lap, down, up and down_d op, B = 16
+     and 32, C = 64, f32 and bf16, with times taken as in phase 11.
+ 13. lab (last): the kernel lab's conv, conv --padded 1, layout, fuse and
+     bmapply with the counts at 0 just before; its errors within their
+     limits; the v2, v1, v5 and bm kernels launched.
+The per-case records go to build/chip_smoke_kernels.json. The last
+two lines are a JSON summary of the kernels and the device line.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import io
 import json
 import math
 import os
-import statistics
 import shutil
 import subprocess
 import tempfile
@@ -57,8 +74,14 @@ PRESET = os.path.join(ROOT, "configs", "CAPE-affineconv_nz64_pose32_clotype32_ma
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_flagship.npz")
 GOLDEN_TRAIN = os.path.join(ROOT, "tests", "data", "torch_golden_train.npz")
 KERNEL_SOURCE = "cape_tpu_torch/csrc/band_apply.cu"
+FUSED_SOURCE = "cape_tpu_torch/csrc/cheb2_fused.cu"
+BM_SOURCE = "cape_tpu_torch/csrc/band_apply_bm.cu"
 REPLACES = "cape_tpu/ops/pallas/cheb_kernel.py:168"  # _pallas_band_apply_v2
 REPLACES_BWD = "cape_tpu/ops/pallas/cheb_kernel.py:268"  # the apply in _v3_bwd
+REPLACES_V1 = "cape_tpu/ops/pallas/cheb_kernel.py:68"  # _pallas_cheb2_impl (kernel 1)
+REPLACES_BM = "cape_tpu/ops/pallas/cheb_kernel.py:310"  # banded_apply_bm (kernel 3)
+REPLACES_V5 = "cape_tpu/ops/pallas/cheb_kernel.py:379"  # _pallas_cheb2_v5_impl (kernel 4)
+RECORDS = os.path.join(ROOT, "build", "chip_smoke_kernels.json")
 
 # (padded rows P, channels C) of the seven band applies of one batch-32
 # flagship decode (and encode) call; batch 64 adds C=32 at P=6912
@@ -71,6 +94,21 @@ PRED = (512, 128)
 TRAIN_APPLIES = {**{pc: 2 for pc in ON_PATH}, PRED: 3}
 FWD_PER_STEP = BWD_PER_STEP = sum(TRAIN_APPLIES.values())   # 17
 FWD_PER_EVAL = 14   # encode + decode of one eval batch
+# (C, F) of the flagship's K=2 convs at each padded row count P (encoder and
+# decoder; at 512 the discriminator's pred conv), and C = F = 64 at each P:
+# the shapes the fused conv kernel is held to its plain version at
+FUSED_CONVS = {
+    6912: [(3, 64), (64, 64), (64, 32), (32, 32), (32, 3)],
+    3456: [(64, 128), (128, 128), (128, 64), (64, 64)],
+    1792: [(128, 256), (256, 256), (256, 128), (128, 128), (64, 64)],
+    896: [(256, 512), (512, 512), (512, 256), (256, 256), (64, 64)],
+    512: [(128, 1), (64, 64)],
+}
+# the fused phase's bf16 check: the kernel's mean error at most this share
+# of the mean distance of a control that drops one of its bf16 numerics
+CONTROL_SHARE = 0.05
+# the lab's subcommands, as `python -m cape_tpu_torch.tools.perf_lab` takes them
+LAB_RUNS = [["conv"], ["conv", "--padded", "1"], ["layout"], ["fuse"], ["bmapply"]]
 
 
 def log(*a):
@@ -94,32 +132,26 @@ def device_phase() -> str:
 
 
 def build_phase():
+    """Compile every kernel source at once (one nvcc each), bind each
+    library, and log ptxas's registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from cape_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    lib = build.build("band_apply")
+    names = ("band_apply", "cheb2_fused", "band_apply_bm")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(build.build, names))
     build.band_apply_lib()
-    log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    ptxas = (lib.parent / f"{lib.stem}.log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("ptxas:", line.strip())
-
-
-def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median of `iters` single-call CUDA-event times after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    build.cheb2_fused_lib()
+    build.band_apply_bm_lib()
+    log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        ptxas = (lib.parent / f"{lib.stem}.log")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"ptxas {lib.stem}:", line.strip())
 
 
 def bf16_ulp(v: float) -> float:
@@ -137,6 +169,7 @@ def _laps(ctx) -> dict:
 def kernel_phase(ctx, smi):
     """Kernel against plain at every case; returns the per-case records."""
     from cape_tpu_torch.ops.kernels.cheb_kernel import band_apply, band_apply_plain
+    from cape_tpu_torch.tools.perf_lab import time_routes
 
     laps = _laps(ctx)
     cases = [(32, P, C, True) for P, C in ON_PATH + [PRED]]
@@ -168,8 +201,10 @@ def kernel_phase(ctx, smi):
             if not err <= limit:
                 raise AssertionError(f"band_apply disagrees with its plain version: {rec}")
             if B == 32 and padded and (P, C) in TRAIN_APPLIES:
-                rec["ms"] = time_ms(lambda: band_apply(x, blocks, op.pad_left, rows_out))
-                rec["plain_ms"] = time_ms(lambda: band_apply_plain(x, blocks, op.pad_left, rows_out))
+                rec.update(time_routes({
+                    "ms": lambda: band_apply(x, blocks, op.pad_left, rows_out),
+                    "plain_ms": lambda: band_apply_plain(x, blocks, op.pad_left, rows_out),
+                }))
                 rec["dense_gflop"] = 2 * S * 128 * P * B * C / 1e9
                 log(f"  time [{smi}]: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
                     f"dense {rec['dense_gflop']:.2f} GFLOP -> "
@@ -185,6 +220,7 @@ def addend_phase(ctx, smi):
     shape of the train step, in f32 and bf16; f32 times. Returns the
     per-case records."""
     from cape_tpu_torch.ops.kernels.cheb_kernel import band_apply, band_apply_plain
+    from cape_tpu_torch.tools.perf_lab import time_routes
 
     laps = _laps(ctx)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -210,11 +246,214 @@ def addend_phase(ctx, smi):
             if not err <= limit:
                 raise AssertionError(f"band_apply with addend disagrees with plain: {rec}")
             if dtype == torch.float32:
-                rec["ms"] = time_ms(lambda: band_apply(x, blocks, op.pad_left, P, addend=r))
-                rec["plain_ms"] = time_ms(lambda: band_apply_plain(x, blocks, op.pad_left, P, r))
+                rec.update(time_routes({
+                    "ms": lambda: band_apply(x, blocks, op.pad_left, P, addend=r),
+                    "plain_ms": lambda: band_apply_plain(x, blocks, op.pad_left, P, r),
+                }))
                 log(f"  time [{smi}]: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
             records.append(rec)
     return records
+
+
+def _err(y, ref) -> tuple[float, float]:
+    torch.cuda.synchronize()
+    return (y.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+
+
+def bf16_controls(x, blocks, pad_left: int, rows: int, w0, w1) -> dict:
+    """Two plain versions of the fused conv on bf16 inputs, each without one
+    of the kernel's bf16 numerics: `lx_f32` takes L~x to the W1 product in
+    f32 (no rounding of L~x); `rounded_products` rounds x W0 and (L~x) W1
+    to bf16 each before the sum (the v2 route's numerics)."""
+    from cape_tpu_torch.ops.kernels.cheb_kernel import fused_cheb2_plain
+
+    f = lambda t: t.float()
+    zero = torch.zeros_like(w0)
+    p0 = fused_cheb2_plain(x, blocks, pad_left, rows, w0, zero)
+    p1 = fused_cheb2_plain(x, blocks, pad_left, rows, zero, w1)
+    return {
+        "lx_f32": fused_cheb2_plain(f(x), f(blocks), pad_left, rows, f(w0), f(w1)).to(x.dtype),
+        "rounded_products": (p0.float() + p1.float()).to(x.dtype),
+    }
+
+
+def control_ratios(y, ref, controls: dict) -> dict:
+    """mean|y - ref| over mean|c - ref| for each control c. A kernel that
+    dropped one of the bf16 numerics would sit as far from ref as that
+    control does (a ratio near 1); one that keeps them differs from ref
+    only where f32 sums in another order round the other way."""
+    d = (y.float() - ref.float()).abs().mean().item()
+    ratios = {}
+    for k, c in controls.items():
+        dc = (c.float() - ref.float()).abs().mean().item()
+        if not dc > 0:
+            raise AssertionError(f"control {k} is indistinguishable from the plain version")
+        ratios[k] = d / dc
+    return ratios
+
+
+def fused_phase(ctx, smi):
+    """The fused conv kernel (rows 1 and 4) against its plain version at
+    every FUSED_CONVS shape, B = 16 and 32, groups 1, 2 and 4, natural and
+    padded layouts, f32 and bf16; in the padded layout, times (routes in
+    turns, `time_routes`) of the kernel at v5's group and at group 1
+    against the plain version, the v3 route (band-apply kernel plus two
+    matmuls) and a device copy of L~x, which moves the bytes of the round
+    trip through device memory that the fused kernel saves. Returns the
+    per-case records.
+
+    Limits: f32, 1e-5 * max|ref| + 1e-6 (the same sums in another order).
+    bf16, two: max|err| within one ulp of max|ref| (the final rounding of
+    sums that differ in f32 rounding) plus max_f sum_c |w1[c, f]| times
+    one ulp of max|L~x| (an element of L~x whose f32 sum lies at a rounding
+    boundary may round the other way); and mean|err| within CONTROL_SHARE
+    of the mean distance of each of `bf16_controls` from the plain version,
+    which a kernel that skipped the rounding of L~x, or rounded the
+    products before the sum, would not meet."""
+    from cape_tpu_torch.ops.kernels.cheb_kernel import (
+        band_apply, band_apply_plain, cheb2_banded_v3, fused_cheb2, fused_cheb2_plain, v5_group,
+    )
+    from cape_tpu_torch.tools.perf_lab import time_routes
+
+    laps = _laps(ctx)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    records = []
+    for P, convs in FUSED_CONVS.items():
+        op = laps[P]
+        for C, F in convs:
+            for B in (16, 32):
+                for dtype in (torch.float32, torch.bfloat16):
+                    name = str(dtype).replace("torch.", "")
+                    blocks = op.blocks.to(dtype).contiguous()
+                    w = (torch.randn((2, C, F), generator=gen, device="cuda") / math.sqrt(C)).to(dtype)
+                    w0, w1 = w[0], w[1]
+                    worst, worst_ratio = 0.0, 0.0
+                    for layout in ("natural", "padded"):
+                        rows = P if layout == "padded" else op.n_rows
+                        x = torch.randn((B, rows, C), generator=gen, device="cuda").to(dtype)
+                        ref = fused_cheb2_plain(x, blocks, op.pad_left, rows, w0, w1)
+                        scale = ref.float().abs().max().item()
+                        if dtype == torch.float32:
+                            limit, controls = 1e-5 * scale + 1e-6, None
+                        else:
+                            lx = band_apply_plain(x, blocks, op.pad_left, rows).float()
+                            w1_l1 = w1.float().abs().sum(0).max().item()
+                            limit = bf16_ulp(scale) + w1_l1 * bf16_ulp(lx.abs().max().item())
+                            controls = bf16_controls(x, blocks, op.pad_left, rows, w0, w1)
+                        for G in (1, 2, 4):
+                            y = fused_cheb2(x, blocks, op.pad_left, rows, w0, w1, G)
+                            err, _ = _err(y, ref)
+                            rec = dict(dtype=name, B=B, P=P, C=C, F=F, G=G, layout=layout,
+                                       max_abs_err=err, max_rel_err=err / scale, limit=limit)
+                            if controls is not None:
+                                rec["control_ratios"] = ratios = control_ratios(y, ref, controls)
+                                worst_ratio = max(worst_ratio, *ratios.values())
+                            if not (err <= limit and worst_ratio <= CONTROL_SHARE):
+                                raise AssertionError(f"cheb2_fused disagrees with its plain version: {rec}")
+                            worst = max(worst, err / scale)
+                            records.append(rec)
+                    # padded layout, last x: times at v5's group and at group 1
+                    op_d = dataclasses.replace(op, blocks=blocks)
+                    G5 = v5_group(B)
+                    with torch.no_grad():
+                        lx = band_apply(x, blocks, op.pad_left, P)
+                        lx_to = torch.empty_like(lx)
+                        t = time_routes({
+                            "ms": lambda: fused_cheb2(x, blocks, op.pad_left, P, w0, w1, G5),
+                            "g1_ms": lambda: fused_cheb2(x, blocks, op.pad_left, P, w0, w1, 1),
+                            "plain_ms": lambda: fused_cheb2_plain(x, blocks, op.pad_left, P, w0, w1),
+                            "v3_ms": lambda: cheb2_banded_v3(x, op_d, w),
+                            "lx_copy_ms": lambda: lx_to.copy_(lx),
+                        })
+                    records.append(dict(dtype=name, B=B, P=P, C=C, F=F, G=G5, layout="padded", **t))
+                    ratio = f", mean err/control {worst_ratio:.3f}" if dtype == torch.bfloat16 else ""
+                    log(f"fused {name} x[{B},{P},{C}] F={F} blocks[{blocks.shape[0]},{blocks.shape[1]}]: "
+                        f"worst rel err {worst:.2e}{ratio} over G=1,2,4 x natural,padded; [{smi}] "
+                        f"G={G5} {t['ms']:.4f} ms, G=1 {t['g1_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+                        f"v3 route {t['v3_ms']:.4f}, copy of L~x {t['lx_copy_ms']:.4f}")
+    return records
+
+
+def bm_phase(ctx, smi):
+    """The batch-major band-apply kernel (row 3) against its plain version
+    on every banded lap, down, up and down_d op of the flagship context
+    (cb = 128, 256 and 64), B = 16 and 32, C = 64, natural layout, f32 and
+    bf16, with times (routes in turns, `time_routes`). Limits: f32 1e-5 *
+    max|ref| + 1e-6, bf16 one ulp of max|ref| (the same f32 sums in another
+    order, one rounding). Returns the per-case records."""
+    from cape_tpu_torch.ops.banded import BandedOp
+    from cape_tpu_torch.ops.kernels.cheb_kernel import banded_apply_bm, banded_apply_bm_plain
+    from cape_tpu_torch.tools.perf_lab import time_routes
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    records = []
+    for field in ("lap", "down", "up", "down_d"):
+        for idx, op in enumerate(getattr(ctx, field)):
+            if not isinstance(op, BandedOp):
+                continue
+            S, T, _, cb = op.blocks.shape
+            args = (op.pad_left, op.pad_right, op.n_rows)
+            for dtype in (torch.float32, torch.bfloat16):
+                blocks = op.blocks.to(dtype).contiguous()
+                for B in (16, 32):
+                    x = torch.randn((B, op.n_cols, 64), generator=gen, device="cuda").to(dtype)
+                    err, scale = _err(banded_apply_bm(x, blocks, *args),
+                                      banded_apply_bm_plain(x, blocks, *args))
+                    limit = 1e-5 * scale + 1e-6 if dtype == torch.float32 else bf16_ulp(scale)
+                    rec = dict(op=f"{field}[{idx}]", dtype=str(dtype).replace("torch.", ""), B=B,
+                               C=64, S=S, T=T, cb=cb, n_cols=op.n_cols, n_rows=op.n_rows,
+                               max_abs_err=err, max_rel_err=err / scale, limit=limit)
+                    if not err <= limit:
+                        raise AssertionError(f"banded_apply_bm disagrees with its plain version: {rec}")
+                    rec.update(time_routes({
+                        "ms": lambda: banded_apply_bm(x, blocks, *args),
+                        "plain_ms": lambda: banded_apply_bm_plain(x, blocks, *args),
+                    }))
+                    log(f"bm {rec['op']} {rec['dtype']} x[{B},{op.n_cols},64] blocks[{S},{T},128,{cb}]: "
+                        f"rel err {err / scale:.2e} (limit {limit:.2e}); [{smi}] "
+                        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
+                    records.append(rec)
+    return records
+
+
+def lab_phase(smi):
+    """The kernel lab, the main path of kernels 1, 3 and 4: each LAB_RUNS
+    entry through `perf_lab.main`, as `python -m cape_tpu_torch.tools.perf_lab`
+    runs it, in this process, with every kernel count set to 0 just before
+    and read just after. Each printed error must be within its limit (f32:
+    1e-5, the same sums in another order; bf16: the JAX lab's own 5e-2),
+    and v2 (band_apply), v1, v5 and bm must have launched. Returns the
+    lines and the counts."""
+    from contextlib import redirect_stdout
+
+    from cape_tpu_torch.ops.kernels import cheb_kernel as ck
+    from cape_tpu_torch.tools import perf_lab
+
+    lines = []
+    # ---- the lab's main path: every count at 0 just before, read just after
+    ck.launches = ck.bwd_launches = ck.fused1_launches = ck.fused_launches = ck.bm_launches = 0
+    t0 = time.perf_counter()
+    for argv in LAB_RUNS:
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            perf_lab.main(argv)
+        for text in buf.getvalue().splitlines():
+            log(f"lab {' '.join(argv)} [{smi}]: {text}")
+            lines.append(json.loads(text))
+    counts = {"band_apply": ck.launches, "band_apply_bwd": ck.bwd_launches,
+              "cheb2_fused_g1": ck.fused1_launches, "cheb2_fused": ck.fused_launches,
+              "band_apply_bm": ck.bm_launches}
+    log(f"lab: {time.perf_counter() - t0:.2f} s, kernel launches {json.dumps(counts)}")
+    for line in lines:
+        dtype = next(line[k] for k in ("conv", "layout", "fuse", "bmapply") if k in line)
+        limit = 1e-5 if dtype == "float32" else 5e-2
+        for k, v in line.items():
+            if k.startswith("max_rel_err") and not 0.0 <= v <= limit:
+                raise AssertionError(f"lab {k} = {v} exceeds {limit}: {line}")
+    for k in ("band_apply", "cheb2_fused_g1", "cheb2_fused", "band_apply_bm"):
+        if counts[k] == 0:
+            raise AssertionError(f"the lab launched no {k} kernel: {counts}")
+    return lines, counts
 
 
 class Client:
@@ -383,6 +622,7 @@ def train_phase(cfg, ctx, ctx_plain, smi):
     from cape_tpu_torch.models.cape import CAPE
     from cape_tpu_torch.ops.kernels import cheb_kernel
     from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.tools.perf_lab import time_routes
     from cape_tpu_torch.train.step import TrainState, train_step
 
     golden = np.load(GOLDEN_TRAIN)
@@ -430,13 +670,12 @@ def train_phase(cfg, ctx, ctx_plain, smi):
     hold_updates("step-2 updates, kernel route vs JAX golden", kernel[3], keys,
                  golden["update_summary"], whole)
 
-    times = {}
-    for route in ("kernel", "plain", "kernel", "plain"):
-        state, c = runs[route][:2]
-        t = time_ms(lambda: train_step(state, c, batches[0], eps[0]), warmup=3, iters=10)
-        times.setdefault(route, []).append(t)
+    step = lambda state, c: train_step(state, c, batches[0], eps[0])
+    times = time_routes({route: functools.partial(step, *runs[route][:2]) for route in runs},
+                        rounds=6, calls=2)
+    for route, t in times.items():
         log(f"batch-32 flagship train step, {route} route [{smi}]: {t:.3f} ms "
-            f"(CUDA events, 3 warm-up, median of 10)")
+            f"(CUDA events, routes in turns, median of 6 rounds of 2 steps)")
     return times
 
 
@@ -497,6 +736,7 @@ def main():
     from cape_tpu_torch.core.config import load_config
     from cape_tpu_torch.models.cape import CAPE
     from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.tools.perf_lab import time_routes
 
     build_phase()
     cfg = load_config(PRESET, batch_size=32, compute_dtype="float32", name="chip_smoke")
@@ -509,6 +749,8 @@ def main():
                and (r["P"], r["C"]) in ON_PATH]
     bwd_records = addend_phase(ctx, smi)
     bwd_f32 = [r for r in bwd_records if r["dtype"] == "float32"]
+    fused_records = fused_phase(ctx, smi)
+    bm_records = bm_phase(ctx, smi)
 
     model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
     n_params = sum(p.numel() for p in model.parameters())
@@ -569,9 +811,10 @@ def main():
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
     zt, ty, ty2 = dev(np.concatenate([golden["z"], y, y2], -1)), dev(y), dev(y2)
     with torch.inference_mode():
-        for name, c in (("kernel", ctx), ("plain", ctx_plain), ("kernel", ctx), ("plain", ctx_plain)):
-            t = time_ms(lambda: model.decode(c, zt, ty, ty2))
-            log(f"batch-32 decode device call, {name} route [{smi}]: {t:.3f} ms")
+        t = time_routes({name: functools.partial(model.decode, c, zt, ty, ty2)
+                         for name, c in (("kernel", ctx), ("plain", ctx_plain))})
+    for name, ms in t.items():
+        log(f"batch-32 decode device call, {name} route [{smi}]: {ms:.3f} ms")
 
     # ---- training: the step on both routes, then the train mode
     train_times = train_phase(cfg, ctx, ctx_plain, smi)
@@ -579,6 +822,12 @@ def main():
     log(f"main paths: serve {launches} band_apply launches; train mode {run_fwd} "
         f"band_apply and {run_bwd} band_apply_bwd launches")
     log(f"train step times [{smi}]: " + json.dumps(train_times))
+    lab_lines, lab_counts = lab_phase(smi)
+    os.makedirs(os.path.dirname(RECORDS), exist_ok=True)
+    with open(RECORDS, "w") as f:
+        json.dump({"device": smi, "band_apply": records, "band_apply_bwd": bwd_records,
+                   "cheb2_fused": fused_records, "band_apply_bm": bm_records,
+                   "lab": lab_lines, "lab_launches": lab_counts}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -605,6 +854,30 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in bwd_f32),
         "ms": per_step(bwd_f32, "ms"),
         "plain_ms": per_step(bwd_f32, "plain_ms"),
+    }]
+    # rows 1, 4 and 3: launches from the lab; the worst f32 error over the
+    # fused and bm phases; times summed over the batch-32 f32 cases (every
+    # FUSED_CONVS shape, padded; every banded op)
+    fused_err = lambda g: max(r["max_abs_err"] for r in fused_records
+                              if r["dtype"] == "float32" and "max_abs_err" in r and (r["G"] == 1) == g)
+    fused_t = [r for r in fused_records if "ms" in r and r["dtype"] == "float32" and r["B"] == 32]
+    bm_f32 = [r for r in bm_records if r["dtype"] == "float32"]
+    bm_t = [r for r in bm_f32 if r["B"] == 32]
+    summary += [{
+        "name": "cheb2_fused (group 1)", "route": "cuda", "source": FUSED_SOURCE,
+        "replaces": REPLACES_V1, "launches": lab_counts["cheb2_fused_g1"],
+        "max_abs_err": fused_err(True),
+        "ms": sum(r["g1_ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
+    }, {
+        "name": "band_apply_bm", "route": "cuda", "source": BM_SOURCE,
+        "replaces": REPLACES_BM, "launches": lab_counts["band_apply_bm"],
+        "max_abs_err": max(r["max_abs_err"] for r in bm_f32),
+        "ms": sum(r["ms"] for r in bm_t), "plain_ms": sum(r["plain_ms"] for r in bm_t),
+    }, {
+        "name": "cheb2_fused (v5 group)", "route": "cuda", "source": FUSED_SOURCE,
+        "replaces": REPLACES_V5, "launches": lab_counts["cheb2_fused"],
+        "max_abs_err": fused_err(False),
+        "ms": sum(r["ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
     }]
     log(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
