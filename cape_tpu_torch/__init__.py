@@ -4,12 +4,14 @@ CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of `cape_tpu` (JAX/XLA/Pallas on a TPU), module for module: each
 module here has the same name and layout as its counterpart there, and
 the tests hold both packages to the same outputs on the same inputs. This
-package imports `torch` and never `jax`, `flax` or `yaml`; the host-side
-mesh precompute (`cape_tpu.meshops`, numpy/scipy only) is shared by import.
+package imports `torch` and nothing of `cape_tpu`, `jax`, `flax` or `yaml`;
+it keeps its own copy of the host-side mesh precompute (`meshops/`,
+numpy/scipy only).
 
 Layout:
   core/      config dataclass and preset reader, initializers, JAX bridge
-  ops/       banded operators, graph context, Chebyshev conv and its kernel
+  meshops/   mesh precompute: pyramids, orderings, the shipped assets
+  ops/       banded operators, graph context, Chebyshev conv and its kernels
   csrc/      CUDA C++ sources, built at first use by ops/kernels/build.py
   models/    the CAPE model (condition nets, encoder, decoder, discriminator)
   losses.py  the training losses

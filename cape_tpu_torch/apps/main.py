@@ -1,13 +1,14 @@
 """CLI entry point and the model set-up shared by the entry points.
 
     python -m cape_tpu_torch.apps.main --config configs/<preset>.yaml \\
-        --mode train --name <run> [--batch_size 32] [--num_epochs N] [--device cuda]
+        --mode train --name <run> [--batch_size 32] [--num_epochs N] [--device cpu]
 
 Counterpart of `cape_tpu.apps.main`. `--mode train` builds the graph
 context, the model (parameters from torch.Generator seed 0), the data and
 the Trainer, fits, and evaluates the test split. The data is the packed
 dataset under data/datasets/<dataset> if it exists, else a synthetic
-stand-in, with a loud notice. Not ported: `--mode test|demo` and the
+stand-in, with a loud notice. It runs on the GPU; without one it raises
+unless `--device cpu` asks for the CPU. Not ported: `--mode test|demo` and the
 DemoSuite the JAX package runs after training (demo meshes, OBJ files).
 """
 
@@ -18,8 +19,8 @@ import sys
 
 import torch
 
-from cape_tpu.meshops import assets
-from cape_tpu.meshops.pyramid import load_or_build as load_or_build_pyramid
+from cape_tpu_torch.meshops import assets
+from cape_tpu_torch.meshops.pyramid import load_or_build as load_or_build_pyramid
 from cape_tpu_torch.core.bridge import load_jax_checkpoint
 from cape_tpu_torch.core.config import CAPEConfig, parse_cli
 from cape_tpu_torch.data.loader import BodyData
@@ -80,7 +81,17 @@ def resolve_config(cfg: CAPEConfig) -> CAPEConfig:
     return cfg
 
 
-def run(cfg: CAPEConfig, workdir: str = "results", device="cpu",
+def require_device(device) -> None:
+    """The entry points run on the GPU unless the caller asks for the CPU:
+    a CUDA device with no GPU present raises, before anything is built."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA GPU is available; pass --device cpu "
+            "(device='cpu' to run()) to run on the CPU"
+        )
+
+
+def run(cfg: CAPEConfig, workdir: str = "results", device="cuda",
         data: BodyData | None = None) -> Trainer:
     """Train, then evaluate the test split; returns the Trainer. `data`
     replaces the dataset that load_bodydata would pick."""
@@ -90,6 +101,7 @@ def run(cfg: CAPEConfig, workdir: str = "results", device="cpu",
             f"--mode {cfg.mode} is not ported to cape_tpu_torch yet: it runs the "
             "JAX package's DemoSuite (test-set meshes, demo samples, OBJ export)"
         )
+    require_device(device)
     model = CAPE(cfg)
     ctx = build_context(cfg, device=device)
     model.init_params(torch.Generator().manual_seed(0), ctx).to(device)
@@ -111,7 +123,7 @@ def main(argv=None):
 
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--workdir", default="results")
     own, rest = ap.parse_known_args(argv)
     cfg = parse_cli(rest)

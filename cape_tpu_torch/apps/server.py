@@ -2,7 +2,10 @@
 over the PyTorch `InferenceEngine`.
 
   python -m cape_tpu_torch.apps.server --config configs/<preset>.yaml \
-      --name run1 [--fresh-init] [--batch_size 32] [--device cuda] [--port 0]
+      --name run1 [--fresh-init] [--batch_size 32] [--device cpu] [--port 0]
+
+It runs on the GPU; without one it raises unless `--device cpu` asks for
+the CPU.
 
 Endpoints (arrays are nested JSON lists, float32 on the wire; POST an
 `np.savez` archive with `Content-Type: application/x-npz` and/or send
@@ -380,7 +383,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda")
     ap.add_argument("--fresh-init", action="store_true")
     ap.add_argument("--workdir", default="results")
     ap.add_argument("--artifact", default=None)
@@ -390,7 +393,9 @@ def main(argv=None):
             "--artifact (serving an AOT export) is not ported to cape_tpu_torch yet"
         )
 
-    from cape_tpu_torch.apps.main import build_context, resolve_config, restore_params
+    from cape_tpu_torch.apps.main import (
+        build_context, require_device, resolve_config, restore_params,
+    )
     from cape_tpu_torch.core.config import parse_cli
     from cape_tpu_torch.models.cape import CAPE
 
@@ -402,6 +407,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--data_parallel is not ported to cape_tpu_torch yet (one device per server)"
         )
+    require_device(own.device)
     model = CAPE(cfg)
     ctx = build_context(cfg)
     if own.fresh_init:

@@ -1,7 +1,7 @@
 """Block-banded sparse apply over the RCM-reordered mesh pyramid.
 
 Counterpart of `cape_tpu.ops.banded`. After the bandwidth-minimizing
-reordering (`cape_tpu.meshops.ordering`) every pyramid matrix is banded:
+reordering (`cape_tpu_torch.meshops.ordering`) every pyramid matrix is banded:
 the nonzeros of row tile t (128 rows) fall in a fixed column window around
 t * col_stride, so the apply is
 

@@ -91,3 +91,14 @@ def band_apply_bm_lib() -> ctypes.CDLL:
     """The batch-major band-apply kernel's library (kernel 3), built on first use."""
     # x, blocks, y; dtype, B, rows_in, C, S, T, cb, pad_left, n_rows
     return _load("band_apply_bm", "cape_band_apply_bm", n_ints=9, n_ptrs=3)
+
+
+@functools.cache
+def cheb2_ring_lib() -> ctypes.CDLL:
+    """The ring fused K=2 conv kernel's library (kernels 5 and 6), built on first use."""
+    # x, blocks, w0, w1, y; dtype, B, rows_in, C, F, S, T, pad_left, rows_out, R
+    lib = _load("cheb2_ring", "cape_cheb2_ring", n_ints=10, n_ptrs=5)
+    # dtype, B, C, S, T, R; int[4] out: cluster size, channels per block, run, bytes
+    lib.cape_cheb2_ring_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    lib.cape_cheb2_ring_plan.restype = ctypes.c_int
+    return lib

@@ -22,6 +22,11 @@ Counterparts of the entries of `cape_tpu/ops/pallas/cheb_kernel.py`:
     with G samples per block (1 for the first, v5's group for the second),
     and the plain backward of JAX's `_bwd` (the JAX package has no backward
     kernel for them).
+  * `cheb2_banded_v6` and `cheb2_banded_v7` (`cheb2_banded_pallas_v6` / `_v7`,
+    TPU kernels `_pallas_cheb2_v6_impl` and `_pallas_cheb2_v7_impl`): the same
+    fused conv in the CUDA kernel `csrc/cheb2_ring.cu` (`ring_cheb2`), which
+    walks runs of consecutive row tiles with a shared-memory ring of x tiles,
+    one or two tiles per step, and the same plain backward.
   * `banded_apply_bm` (TPU kernel `banded_apply_bm`): y = M x for a banded M
     with any column block, batch-major, in the CUDA kernel
     `csrc/band_apply_bm.cu`.
@@ -29,8 +34,10 @@ Counterparts of the entries of `cape_tpu/ops/pallas/cheb_kernel.py`:
 
 from __future__ import annotations
 
-import torch
+import ctypes
+import functools
 
+import torch
 import torch.nn.functional as F
 
 from cape_tpu_torch.ops.banded import apply_blocks
@@ -40,13 +47,16 @@ RB = 128
 # kernel launches of band_apply without an addend (the forward of
 # cheb2_banded_v3 and cheb2_banded_v2) and with one (the backward of
 # cheb2_banded_v3); of fused_cheb2 with a group of 1 (kernel 1's case) and
-# with a larger group (kernel 4's); of banded_apply_bm. The CPU/meta plain
-# paths count in none of them.
+# with a larger group (kernel 4's); of banded_apply_bm; of ring_cheb2 with
+# one row tile per step (kernel 5's case) and with two (kernel 6's). The
+# CPU/meta plain paths count in none of them.
 launches = 0
 bwd_launches = 0
 fused1_launches = 0
 fused_launches = 0
 bm_launches = 0
+ring_launches = 0
+ring2_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,11 +71,16 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _check_cuda(name: str, x: torch.Tensor, **others: torch.Tensor | None) -> None:
-    """What every kernel wrapper checks before a launch: x is a contiguous
-    CUDA tensor of a dtype the kernels take, and each other tensor given
-    (not None) is contiguous, of x's dtype and on x's device."""
+    """What every kernel wrapper checks before a launch: x is a CUDA tensor,
+    and `_check_tensors` holds."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
+    _check_tensors(name, x, **others)
+
+
+def _check_tensors(name: str, x: torch.Tensor, **others: torch.Tensor | None) -> None:
+    """x is contiguous and of a dtype the kernels take, and each other tensor
+    given (not None) is contiguous, of x's dtype and on x's device."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} (kernel takes float32, bfloat16)")
     for k, t in {"x": x, **others}.items():
@@ -215,9 +230,11 @@ def _centre(x: torch.Tensor, pad_left: int, rows_out: int) -> torch.Tensor:
 
 
 def fused_cheb2_plain(x, blocks, pad_left: int, rows_out: int, w0, w1) -> torch.Tensor:
-    """Plain PyTorch version of the fused K=2 conv kernel, with the JAX
-    kernels' numerics (`_make_kernel`, `_make_kernel_v5`): the band sum L~x
-    in f32 (f64 for f64 inputs), rounded to x's dtype before the W1
+    """Plain PyTorch version of the fused K=2 conv kernels, with the JAX
+    kernels' numerics: kernels 1, 4, 5 and 6 (`_make_kernel`,
+    `_make_kernel_v5`, `_v6`, `_v7`) compute the same function with the
+    same numerics, and so do `cheb2_fused.cu` and `cheb2_ring.cu`. The band
+    sum L~x in f32 (f64 for f64 inputs), rounded to x's dtype before the W1
     product; both products accumulated in f32 from x's dtype and summed;
     one rounding at the end. y [B, rows_out, F] for x [B, rows_in, C],
     blocks [S, T, 128, 128] and w0, w1 [C, F]; rows of x outside
@@ -289,13 +306,15 @@ def _plain_bwd(meta, x, blocks, w0, w1, g, needs):
 
 
 class _FusedCheb2(torch.autograd.Function):
-    """The fused conv (kernels 1 and 4) forward; JAX's plain `_bwd` backward."""
+    """A fused conv forward, `launch(x, blocks, pad_left, rows_out, w0, w1)`
+    (fused_cheb2 for kernels 1 and 4, ring_cheb2 for 5 and 6); JAX's plain
+    `_bwd` backward, as the JAX package has no backward kernel for them."""
 
     @staticmethod
-    def forward(ctx, x, w0, w1, blocks, meta, group):
+    def forward(ctx, x, w0, w1, blocks, meta, launch):
         ctx.save_for_backward(x, w0, w1, blocks)
         ctx.meta = meta
-        return fused_cheb2(x, blocks, meta[0], meta[2], w0, w1, group)
+        return launch(x, blocks, meta[0], meta[2], w0, w1)
 
     @staticmethod
     def backward(ctx, g):
@@ -319,15 +338,114 @@ def cheb2_banded(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Tensor
     return cheb2_banded_v5(x, band_op, weight, group=1)
 
 
+def _whole_conv(x: torch.Tensor, band_op, weight: torch.Tensor, launch) -> torch.Tensor:
+    w = weight.to(x.dtype)
+    return _FusedCheb2.apply(
+        x.contiguous(), w[0], w[1], band_op.blocks.to(x.dtype), _band_meta(band_op, x), launch,
+    )
+
+
 def cheb2_banded_v5(x: torch.Tensor, band_op, weight: torch.Tensor, group: int = 4) -> torch.Tensor:
     """Fused K=2 Chebyshev conv with G samples per block (kernel 4,
     `cheb2_banded_pallas_v5`), natural or padded layout; G is `group`
     halved until it divides the batch. x: [B, V, C]; weight: [2, C, F]."""
-    w = weight.to(x.dtype)
-    return _FusedCheb2.apply(
-        x.contiguous(), w[0], w[1], band_op.blocks.to(x.dtype), _band_meta(band_op, x),
-        v5_group(x.shape[0], group),
+    return _whole_conv(x, band_op, weight,
+                       functools.partial(fused_cheb2, group=v5_group(x.shape[0], group)))
+
+
+def cheb2_banded_v6(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Tensor:
+    """Rolling-ring fused K=2 Chebyshev conv (kernel 5, `cheb2_banded_pallas_v6`)
+    on a square symmetric BandedOp with 128x128 blocks, natural or padded
+    layout: `ring_cheb2` with one row tile per step. x: [B, V, C];
+    weight: [2, C, F]."""
+    return _whole_conv(x, band_op, weight, functools.partial(ring_cheb2, rows_per_step=1))
+
+
+def cheb2_banded_v7(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Tensor:
+    """The ring conv with two row tiles per step (kernel 6,
+    `cheb2_banded_pallas_v7`), natural or padded layout. x: [B, V, C];
+    weight: [2, C, F]."""
+    return _whole_conv(x, band_op, weight, functools.partial(ring_cheb2, rows_per_step=2))
+
+
+# --------------------------------------------------- the ring fused conv (kernels 5, 6)
+
+
+@functools.cache
+def ring_plan(dtype: torch.dtype, B: int, C: int, S: int, T: int, rows_per_step: int) -> dict | None:
+    """How `csrc/cheb2_ring.cu` runs a conv of these sizes on the current
+    GPU: `cluster` blocks per sample and run (they split the C channels,
+    `channels` each), `run` output row tiles per cluster, `smem` bytes of
+    shared memory per block; None if no cluster of at most 16 blocks holds
+    its share of the ring in shared memory. Builds the kernel's library."""
+    from cape_tpu_torch.ops.kernels.build import cheb2_ring_lib
+
+    lib = cheb2_ring_lib()
+    out = (ctypes.c_int * 4)()
+    err = lib.cape_cheb2_ring_plan(_DTYPE_CODES[dtype], B, C, S, T, rows_per_step, out)
+    _raise_on("cheb2_ring plan", lib, err, f"B={B}, C={C}, S={S}, T={T}, R={rows_per_step}")
+    if out[0] == 0:
+        return None
+    return dict(cluster=out[0], channels=out[1], run=out[2], smem=out[3],
+                x_read_factor=(out[2] + S - 1) / out[2])
+
+
+def ring_cheb2(
+    x: torch.Tensor, blocks: torch.Tensor, pad_left: int, rows_out: int,
+    w0: torch.Tensor, w1: torch.Tensor, rows_per_step: int,
+) -> torch.Tensor:
+    """y = x_c @ w0 + round(L~ x) @ w1 -> [B, rows_out, F] in one kernel, for
+    x [B, rows_in, C], blocks [S, T, 128, 128] and w0, w1 [C, F], all of x's
+    dtype (float32 or bfloat16) and contiguous; `rows_per_step` 1 (v6) or 2
+    (v7) output row tiles per step of the ring. CUDA tensors launch
+    `csrc/cheb2_ring.cu`; CPU and meta tensors take fused_cheb2_plain after
+    the same checks. A shape whose ring no cluster of blocks holds in
+    shared memory raises ValueError. A launch counts in `ring_launches`
+    (one tile per step, kernel 5's case) or `ring2_launches` (kernel 6's)."""
+    global ring_launches, ring2_launches
+    if rows_per_step not in (1, 2):
+        raise ValueError(f"ring_cheb2: rows_per_step={rows_per_step} (the kernel takes 1 or 2)")
+    _check_tensors("ring_cheb2", x, blocks=blocks, w0=w0, w1=w1)
+    if x.dim() != 3 or blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
+        raise ValueError(
+            f"ring_cheb2: x {tuple(x.shape)} must be [B, rows, C] and blocks "
+            f"{tuple(blocks.shape)} [S, T, {RB}, {RB}]"
+        )
+    B, rows_in, C = x.shape
+    S, T = blocks.shape[:2]
+    Fo = w0.shape[-1]
+    if tuple(w0.shape) != (C, Fo) or tuple(w1.shape) != (C, Fo):
+        raise ValueError(f"ring_cheb2: w0 {tuple(w0.shape)}, w1 {tuple(w1.shape)} for C={C}")
+    if not 0 < rows_out <= T * RB or not 0 <= pad_left < S * RB:
+        raise ValueError(
+            f"ring_cheb2: rows_out={rows_out} must lie in (0, {T * RB}] and pad_left={pad_left} "
+            f"in [0, {S * RB}) (the centre tile inside the window of S={S} tiles)"
+        )
+    if x.device.type in ("cpu", "meta"):
+        return fused_cheb2_plain(x, blocks, pad_left, rows_out, w0, w1)
+    _check_cuda("ring_cheb2", x, blocks=blocks, w0=w0, w1=w1)
+    if ring_plan(x.dtype, B, C, S, T, rows_per_step) is None:
+        raise ValueError(
+            f"ring_cheb2: no cluster of at most 16 blocks holds its share of the ring "
+            f"({S + 2 * rows_per_step - 1} x tiles of {RB} rows by C={C} {x.dtype} channels), "
+            f"the sums and the staging buffers in the 232448 bytes of shared memory a block may have"
+        )
+    from cape_tpu_torch.ops.kernels.build import cheb2_ring_lib
+
+    lib = cheb2_ring_lib()
+    y = torch.empty((B, rows_out, Fo), dtype=x.dtype, device=x.device)
+    err = lib.cape_cheb2_ring(
+        x.data_ptr(), blocks.data_ptr(), w0.data_ptr(), w1.data_ptr(), y.data_ptr(),
+        _DTYPE_CODES[x.dtype], B, rows_in, C, Fo, S, T, pad_left, rows_out, rows_per_step,
+        _stream(x),
     )
+    _raise_on("cheb2_ring", lib, err, f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
+              f"F={Fo}, R={rows_per_step}")
+    if rows_per_step == 1:
+        ring_launches += 1
+    else:
+        ring2_launches += 1
+    return y
 
 
 class _Cheb2V2(torch.autograd.Function):

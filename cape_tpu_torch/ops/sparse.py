@@ -2,7 +2,7 @@
 
 Counterpart of `cape_tpu.ops.sparse` in banded mode. The host-side
 pyramids, their bandwidth-minimizing orderings and the scaled Laplacians
-come from `cape_tpu.meshops` (numpy/scipy) by import; this module packs
+come from the port's `meshops` (numpy/scipy); this module packs
 them into torch operators: the VAE pyramid, the discriminator's ds2
 pyramid and the edge-difference operator of the edge loss. The fused L~@U
 operators of the JAX context serve an opt-in path that is not ported.
@@ -16,8 +16,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from cape_tpu.meshops.ordering import permute_edges, permute_pyramid, pyramid_orderings
-from cape_tpu.meshops.pyramid import MeshPyramid
+from cape_tpu_torch.meshops.ordering import permute_edges, permute_pyramid, pyramid_orderings
+from cape_tpu_torch.meshops.pyramid import MeshPyramid
 from cape_tpu_torch.ops.banded import banded_from_scipy
 
 
@@ -125,8 +125,8 @@ def build_graph_context(
     device="cpu",
 ) -> GraphContext:
     """Context of both pyramids, reordered by the RCM/induced orderings of
-    `cape_tpu.meshops.ordering` (the orderings the JAX context uses, so
-    both packages hold the same operators); the edge table, the template
+    `meshops.ordering` (a copy of the orderings the JAX context uses,
+    so both packages hold the same operators); the edge table, the template
     and the loss mask are stored permuted. use_pallas=False pins every conv
     to the plain banded apply. The gather (ELL) and dense modes of the JAX
     package are not ported."""

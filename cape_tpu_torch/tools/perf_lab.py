@@ -116,8 +116,8 @@ def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 @functools.cache
 def _flagship_ctx(dtype_name: str, padded: bool, device: str):
     """The port's flagship context: the for_demo and ds2 pyramids of
-    `cape_tpu.meshops.assets`, in `dtype_name`, on `device`."""
-    from cape_tpu.meshops import assets
+    `meshops.assets`, in `dtype_name`, on `device`."""
+    from cape_tpu_torch.meshops import assets
     from cape_tpu_torch.ops.sparse import build_graph_context
 
     verts, _ = assets.template_mesh()

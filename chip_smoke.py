@@ -5,14 +5,16 @@
 Phases (any failure raises; the script then exits non-zero and prints no
 result line):
   1. device: a CUDA GPU must be present (there is no CPU path); TF32 off.
-  2. build: compile the three sources of csrc/ with nvcc, all at once;
+  2. build: compile the four sources of csrc/ with nvcc, all at once;
      log ptxas's registers and spills.
   3. kernel: the band-apply kernel against its plain PyTorch version at
      every batch-32 and batch-64 shape of the flagship serving path, one
      natural-layout and one ragged-column case, in f32 and bf16; then its
      addend variant (the backward pass of the conv) at every batch-32
      shape of the train step, the discriminator's [32, 512, 128] included,
-     in f32 and bf16, with times against plain.
+     in f32 and bf16, with times against plain and against one library call
+     (torch.sparse.mm of the operator as a CSR matrix; addmm with the
+     addend), which the port never calls.
   4. serve: the flagship preset (f32, batch 32, parameters from
      torch.Generator seed 0) behind the port's HTTP server on 127.0.0.1:0;
      /health, /sample (n=40: two padded decode calls), /encode, /decode,
@@ -43,12 +45,26 @@ result line):
      L~x, the routes in turns, each event pair around 10 calls.
  12. bm (after phase 11): the batch-major band-apply kernel (row 3) against
      its plain version on every banded lap, down, up and down_d op, B = 16
-     and 32, C = 64, f32 and bf16, with times taken as in phase 11.
- 13. lab (last): the kernel lab's conv, conv --padded 1, layout, fuse and
+     and 32, C = 64, f32 and bf16, with times taken as in phase 11 (and
+     the library call in f32).
+ 13. ring (after phase 12): the ring conv kernel (rows 5 and 6, one and two
+     row tiles per step) against its plain version at every FUSED_CONVS
+     shape, B = 16 and 32, f32 and bf16, natural and padded, with the fused
+     phase's limits; a shape whose ring no cluster holds must have C > 64
+     and must be refused with ValueError. Times at B = 32, padded, both
+     dtypes: both ring kernels, the plain version, the fused kernel at
+     group 1 and the v3 route. Then its main path, counts at 0 just before
+     and read just after: cheb2_banded_v6 and _v7 once each through
+     autograd at [32, 6912, 64] -> 64, padded, f32, held to the plain
+     conv's autograd (y, dx, dW within 1e-5 relative); one launch each in
+     the forward, none in the backward.
+ 14. lab (last): the kernel lab's conv, conv --padded 1, layout, fuse and
      bmapply with the counts at 0 just before; its errors within their
      limits; the v2, v1, v5 and bm kernels launched.
-The per-case records go to build/chip_smoke_kernels.json. The last
-two lines are a JSON summary of the kernels and the device line.
+Every timed record carries `bound_ms`, the least time the card could take
+for the same work (see `bound`). The per-case records go to
+build/chip_smoke_kernels.json. The last two lines are a JSON summary of
+the kernels and the device line.
 """
 
 from __future__ import annotations
@@ -76,11 +92,14 @@ GOLDEN_TRAIN = os.path.join(ROOT, "tests", "data", "torch_golden_train.npz")
 KERNEL_SOURCE = "cape_tpu_torch/csrc/band_apply.cu"
 FUSED_SOURCE = "cape_tpu_torch/csrc/cheb2_fused.cu"
 BM_SOURCE = "cape_tpu_torch/csrc/band_apply_bm.cu"
+RING_SOURCE = "cape_tpu_torch/csrc/cheb2_ring.cu"
 REPLACES = "cape_tpu/ops/pallas/cheb_kernel.py:168"  # _pallas_band_apply_v2
 REPLACES_BWD = "cape_tpu/ops/pallas/cheb_kernel.py:268"  # the apply in _v3_bwd
 REPLACES_V1 = "cape_tpu/ops/pallas/cheb_kernel.py:68"  # _pallas_cheb2_impl (kernel 1)
 REPLACES_BM = "cape_tpu/ops/pallas/cheb_kernel.py:310"  # banded_apply_bm (kernel 3)
 REPLACES_V5 = "cape_tpu/ops/pallas/cheb_kernel.py:379"  # _pallas_cheb2_v5_impl (kernel 4)
+REPLACES_V6 = "cape_tpu/ops/pallas/cheb_kernel.py:502"  # _pallas_cheb2_v6_impl (kernel 5)
+REPLACES_V7 = "cape_tpu/ops/pallas/cheb_kernel.py:597"  # _pallas_cheb2_v7_impl (kernel 6)
 RECORDS = os.path.join(ROOT, "build", "chip_smoke_kernels.json")
 
 # (padded rows P, channels C) of the seven band applies of one batch-32
@@ -107,12 +126,42 @@ FUSED_CONVS = {
 # the fused phase's bf16 check: the kernel's mean error at most this share
 # of the mean distance of a control that drops one of its bf16 numerics
 CONTROL_SHARE = 0.05
+# the H100 SXM's published peaks at its full 700 W (NVIDIA's data sheet):
+# device memory, and per input dtype f32 outside the tensor cores and dense
+# bf16 on them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# the ring phase's autograd main path: [B, P, C] -> F, padded, f32
+RING_MAIN = (32, 6912, 64, 64)
 # the lab's subcommands, as `python -m cape_tpu_torch.tools.perf_lab` takes them
 LAB_RUNS = [["conv"], ["conv", "--padded", "1"], ["layout"], ["fuse"], ["bmapply"]]
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+# the launch counts of the kernel wrappers (cape_tpu_torch.ops.kernels.cheb_kernel)
+COUNTS = ("launches", "bwd_launches", "fused1_launches", "fused_launches", "bm_launches",
+          "ring_launches", "ring2_launches")
+
+
+def zero_counts() -> None:
+    from cape_tpu_torch.ops.kernels import cheb_kernel
+
+    for k in COUNTS:
+        setattr(cheb_kernel, k, 0)
+
+
+def read_counts() -> dict:
+    from cape_tpu_torch.ops.kernels import cheb_kernel
+
+    return {k: getattr(cheb_kernel, k) for k in COUNTS}
+
+
+def only(counts: dict, *names) -> bool:
+    """No kernel but `names` launched."""
+    return not any(v for k, v in counts.items() if k not in names)
 
 
 def device_phase() -> str:
@@ -139,12 +188,13 @@ def build_phase():
     from cape_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    names = ("band_apply", "cheb2_fused", "band_apply_bm")
+    names = ("band_apply", "cheb2_fused", "band_apply_bm", "cheb2_ring")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
     build.band_apply_lib()
     build.cheb2_fused_lib()
     build.band_apply_bm_lib()
+    build.cheb2_ring_lib()
     log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         ptxas = (lib.parent / f"{lib.stem}.log")
@@ -156,6 +206,73 @@ def build_phase():
 
 def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def _name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    """The least time the card could take for a call: the larger of the
+    bytes it must move over the memory rate and its operations over the peak
+    rate for its dtype (`HBM_BYTES_PER_S`, `PEAK_FLOP_PER_S`); which of the
+    two sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[_name(dtype)] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nnz(blocks) -> int:
+    return int((blocks != 0).sum().item())
+
+
+def apply_bound(blocks, B: int, rows_in: int, rows_out: int, C: int, dtype, addend=False) -> dict:
+    """`bound` of a band apply y = M x (+ r): x read once, y written once (r
+    read once), the band as its non-zero values with a 4-byte column index
+    each; 2 operations per non-zero entry, sample and channel (and one add
+    per element of r)."""
+    el = torch.empty((), dtype=dtype).element_size()
+    rows = rows_in + rows_out * (2 if addend else 1)
+    nnz = _nnz(blocks)
+    return bound(el * B * C * rows + nnz * (el + 4),
+                 2 * nnz * B * C + (B * rows_out * C if addend else 0), dtype)
+
+
+def conv_bound(blocks, B: int, rows_in: int, rows_out: int, C: int, F: int, dtype) -> dict:
+    """`bound` of the fused K=2 conv: x read once, y written once, w0 and w1
+    and the band (as in apply_bound) read once; the band sum (2 per non-zero
+    entry, sample and channel) and both projections (4 C F per output row
+    and sample)."""
+    el = torch.empty((), dtype=dtype).element_size()
+    nnz = _nnz(blocks)
+    return bound(el * (B * rows_in * C + B * rows_out * F + 2 * C * F) + nnz * (el + 4),
+                 2 * nnz * B * C + 4 * B * rows_out * C * F, dtype)
+
+
+def summed_bound(records, weight=lambda r: 1) -> dict:
+    """The bounds of several calls summed, set by what sets most of the sum."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for r in records:
+        by[r["bound_by"]] += weight(r) * r["bound_ms"]
+    return {"bound_ms": sum(by.values()), "bound_by": max(by, key=by.get)}
+
+
+def csr_operator(blocks, pad_left: int, rows_in: int, rows_out: int) -> torch.Tensor:
+    """The banded operator as one sparse CSR matrix [rows_out, rows_in], the
+    operand of the library call timed beside the band-apply kernels (the
+    port never calls it)."""
+    rb, cb = blocks.shape[2:]
+    k, t, i, j = blocks.nonzero(as_tuple=True)
+    rows, cols = t * rb + i, (t + k) * cb + j - pad_left
+    keep = (rows < rows_out) & (cols >= 0) & (cols < rows_in)
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                  blocks[k, t, i, j][keep], (rows_out, rows_in))
+    return coo.coalesce().to_sparse_csr()
+
+
+def vertex_major(x: torch.Tensor) -> torch.Tensor:
+    """[B, V, C] -> [V, B*C], the layout of the library call's dense operand."""
+    return x.transpose(0, 1).reshape(x.shape[1], -1).contiguous()
 
 
 def _laps(ctx) -> dict:
@@ -201,12 +318,19 @@ def kernel_phase(ctx, smi):
             if not err <= limit:
                 raise AssertionError(f"band_apply disagrees with its plain version: {rec}")
             if B == 32 and padded and (P, C) in TRAIN_APPLIES:
-                rec.update(time_routes({
+                routes = {
                     "ms": lambda: band_apply(x, blocks, op.pad_left, rows_out),
                     "plain_ms": lambda: band_apply_plain(x, blocks, op.pad_left, rows_out),
-                }))
+                }
+                if dtype == torch.float32:
+                    A, xv = csr_operator(blocks, op.pad_left, P, rows_out), vertex_major(x)
+                    routes["library_ms"] = lambda: torch.sparse.mm(A, xv)
+                rec.update(time_routes(routes))
+                rec.update(apply_bound(blocks, B, P, rows_out, C, dtype))
                 rec["dense_gflop"] = 2 * S * 128 * P * B * C / 1e9
-                log(f"  time [{smi}]: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                lib = f", library {rec['library_ms']:.4f}" if "library_ms" in rec else ""
+                log(f"  time [{smi}]: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms{lib}, "
+                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
                     f"dense {rec['dense_gflop']:.2f} GFLOP -> "
                     f"{rec['dense_gflop'] / rec['ms']:.1f} TFLOP/s dense-equivalent, "
                     f"non-zero 128x32 slabs {rec['nonzero_slabs']:.3f}")
@@ -246,11 +370,16 @@ def addend_phase(ctx, smi):
             if not err <= limit:
                 raise AssertionError(f"band_apply with addend disagrees with plain: {rec}")
             if dtype == torch.float32:
+                A, xv, rv = csr_operator(blocks, op.pad_left, P, P), vertex_major(x), vertex_major(r)
                 rec.update(time_routes({
                     "ms": lambda: band_apply(x, blocks, op.pad_left, P, addend=r),
                     "plain_ms": lambda: band_apply_plain(x, blocks, op.pad_left, P, r),
+                    "library_ms": lambda: torch.sparse.addmm(rv, A, xv),
                 }))
-                log(f"  time [{smi}]: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
+                rec.update(apply_bound(blocks, 32, P, P, C, dtype, addend=True))
+                log(f"  time [{smi}]: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                    f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']})")
             records.append(rec)
     return records
 
@@ -365,7 +494,8 @@ def fused_phase(ctx, smi):
                             "v3_ms": lambda: cheb2_banded_v3(x, op_d, w),
                             "lx_copy_ms": lambda: lx_to.copy_(lx),
                         })
-                    records.append(dict(dtype=name, B=B, P=P, C=C, F=F, G=G5, layout="padded", **t))
+                    records.append(dict(dtype=name, B=B, P=P, C=C, F=F, G=G5, layout="padded", **t,
+                                        **conv_bound(blocks, B, P, P, C, F, dtype)))
                     ratio = f", mean err/control {worst_ratio:.3f}" if dtype == torch.bfloat16 else ""
                     log(f"fused {name} x[{B},{P},{C}] F={F} blocks[{blocks.shape[0]},{blocks.shape[1]}]: "
                         f"worst rel err {worst:.2e}{ratio} over G=1,2,4 x natural,padded; [{smi}] "
@@ -405,15 +535,159 @@ def bm_phase(ctx, smi):
                                max_abs_err=err, max_rel_err=err / scale, limit=limit)
                     if not err <= limit:
                         raise AssertionError(f"banded_apply_bm disagrees with its plain version: {rec}")
-                    rec.update(time_routes({
+                    routes = {
                         "ms": lambda: banded_apply_bm(x, blocks, *args),
                         "plain_ms": lambda: banded_apply_bm_plain(x, blocks, *args),
-                    }))
+                    }
+                    if dtype == torch.float32:
+                        A, xv = csr_operator(blocks, op.pad_left, op.n_cols, op.n_rows), vertex_major(x)
+                        routes["library_ms"] = lambda: torch.sparse.mm(A, xv)
+                    rec.update(time_routes(routes))
+                    rec.update(apply_bound(blocks, B, op.n_cols, op.n_rows, 64, dtype))
+                    lib = f", library {rec['library_ms']:.4f}" if "library_ms" in rec else ""
                     log(f"bm {rec['op']} {rec['dtype']} x[{B},{op.n_cols},64] blocks[{S},{T},128,{cb}]: "
                         f"rel err {err / scale:.2e} (limit {limit:.2e}); [{smi}] "
-                        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
+                        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms{lib}, "
+                        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
                     records.append(rec)
     return records
+
+
+def ring_phase(ctx, smi):
+    """The ring conv kernel (rows 5 and 6: `ring_cheb2` with one and two row
+    tiles per step) against its plain version at every FUSED_CONVS shape,
+    B = 16 and 32, f32 and bf16, natural and padded, with the fused phase's
+    limits. A shape whose ring no cluster of blocks holds (`ring_plan` is
+    None) must have C > 64 and must be refused with ValueError; it is
+    recorded. At B = 32, padded, both dtypes: times (routes in turns) of
+    both ring kernels, the plain version, the fused kernel at group 1 and
+    the v3 route, and the bound. Then the main path of rows 5 and 6, with
+    every count at 0 just before and read just after: `cheb2_banded_v6` and
+    `cheb2_banded_v7` once each through autograd at RING_MAIN (padded, f32,
+    x's tail rows 7.0, the cotangent's tail zero), held to the plain conv's
+    autograd, y, dx and dW within 1e-5 * max|ref|; one launch each in the
+    forward, none in the backward. Returns the records, the refused shapes
+    and the main path's counts."""
+    from cape_tpu_torch.ops.cheb import cheb_conv
+    from cape_tpu_torch.ops.kernels import cheb_kernel as ck
+    from cape_tpu_torch.tools.perf_lab import time_routes
+
+    t_phase = time.perf_counter()
+    laps = _laps(ctx)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    records, refused = [], []
+    for P, convs in FUSED_CONVS.items():
+        op = laps[P]
+        S, T = op.blocks.shape[:2]
+        for C, F in convs:
+            for B in (16, 32):
+                for dtype in (torch.float32, torch.bfloat16):
+                    name = _name(dtype)
+                    blocks = op.blocks.to(dtype).contiguous()
+                    w = (torch.randn((2, C, F), generator=gen, device="cuda") / math.sqrt(C)).to(dtype)
+                    w0, w1 = w[0], w[1]
+                    plans = {R: ck.ring_plan(dtype, B, C, S, T, R) for R in (1, 2)}
+                    for R, plan in plans.items():
+                        if plan is None:
+                            refused.append(dict(dtype=name, B=B, P=P, C=C, F=F, R=R))
+                            if C <= 64:
+                                raise AssertionError(f"cheb2_ring refuses C={C} <= 64: {refused[-1]}")
+                    worst, worst_ratio = 0.0, 0.0
+                    for layout in ("natural", "padded"):
+                        rows = P if layout == "padded" else op.n_rows
+                        x = torch.randn((B, rows, C), generator=gen, device="cuda").to(dtype)
+                        ref = ck.fused_cheb2_plain(x, blocks, op.pad_left, rows, w0, w1)
+                        scale = ref.float().abs().max().item()
+                        if dtype == torch.float32:
+                            limit, controls = 1e-5 * scale + 1e-6, None
+                        else:
+                            lx = ck.band_apply_plain(x, blocks, op.pad_left, rows).float()
+                            w1_l1 = w1.float().abs().sum(0).max().item()
+                            limit = bf16_ulp(scale) + w1_l1 * bf16_ulp(lx.abs().max().item())
+                            controls = bf16_controls(x, blocks, op.pad_left, rows, w0, w1)
+                        for R, plan in plans.items():
+                            if plan is None:
+                                try:
+                                    ck.ring_cheb2(x, blocks, op.pad_left, rows, w0, w1, R)
+                                except ValueError:
+                                    continue
+                                raise AssertionError(f"cheb2_ring ran a shape its plan refuses: "
+                                                     f"{refused[-1]}")
+                            y = ck.ring_cheb2(x, blocks, op.pad_left, rows, w0, w1, R)
+                            err, _ = _err(y, ref)
+                            rec = dict(dtype=name, B=B, P=P, C=C, F=F, R=R, layout=layout, **plan,
+                                       max_abs_err=err, max_rel_err=err / scale, limit=limit)
+                            if controls is not None:
+                                rec["control_ratios"] = ratios = control_ratios(y, ref, controls)
+                                worst_ratio = max(worst_ratio, *ratios.values())
+                            if not (err <= limit and worst_ratio <= CONTROL_SHARE):
+                                raise AssertionError(f"cheb2_ring disagrees with its plain version: {rec}")
+                            worst = max(worst, err / scale)
+                            records.append(rec)
+                    if B != 32:
+                        continue
+                    # padded layout, last x: times of both ring kernels and their yardsticks
+                    op_d = dataclasses.replace(op, blocks=blocks)
+                    routes = {"plain_ms": lambda: ck.fused_cheb2_plain(x, blocks, op.pad_left, P, w0, w1),
+                              "g1_ms": lambda: ck.fused_cheb2(x, blocks, op.pad_left, P, w0, w1, 1),
+                              "v3_ms": lambda: ck.cheb2_banded_v3(x, op_d, w)}
+                    for R, key in ((1, "ms"), (2, "r2_ms")):
+                        if plans[R] is not None:
+                            routes[key] = functools.partial(ck.ring_cheb2, x, blocks, op.pad_left, P,
+                                                            w0, w1, R)
+                    with torch.no_grad():
+                        tm = time_routes(routes)
+                    records.append(dict(dtype=name, B=B, P=P, C=C, F=F, layout="padded", **tm,
+                                        **conv_bound(blocks, B, P, P, C, F, dtype)))
+                    ring = " ".join(f"R={R} {tm[k]:.4f}" for R, k in ((1, "ms"), (2, "r2_ms")) if k in tm)
+                    plan_s = "; ".join(f"R={R} cluster {p['cluster']} x {p['channels']} channels, run "
+                                       f"{p['run']} tiles (x read {p['x_read_factor']:.3f}x), "
+                                       f"{p['smem']} B" if p else f"R={R} refused"
+                                       for R, p in plans.items())
+                    ratio = f", mean err/control {worst_ratio:.3f}" if dtype == torch.bfloat16 else ""
+                    log(f"ring {name} x[{B},{P},{C}] F={F} blocks[{S},{T}]: worst rel err {worst:.2e}"
+                        f"{ratio} over R=1,2 x natural,padded (B=16 too); {plan_s}; [{smi}] "
+                        f"ms: ring {ring}, plain {tm['plain_ms']:.4f}, G=1 {tm['g1_ms']:.4f}, "
+                        f"v3 route {tm['v3_ms']:.4f}, bound {records[-1]['bound_ms']:.4f} "
+                        f"({records[-1]['bound_by']})")
+    log(f"ring: refused {len(refused)} cases: {json.dumps(refused)}")
+
+    # ---- the main path of rows 5 and 6: every count at 0 just before, read just after
+    B, P, C, F = RING_MAIN
+    op = laps[P]
+    x = torch.randn((B, P, C), generator=gen, device="cuda")
+    x[:, op.n_rows:] = 7.0
+    g = torch.randn((B, P, F), generator=gen, device="cuda")
+    g[:, op.n_rows:] = 0.0
+    W = torch.randn((2, C, F), generator=gen, device="cuda") / math.sqrt(C)
+    plain = dataclasses.replace(op, allow_pallas=False)
+
+    def value_and_grads(fn):
+        xg, wg = x.clone().requires_grad_(), W.clone().requires_grad_()
+        y = fn(xg, wg)
+        forward = (ck.ring_launches, ck.ring2_launches)
+        dx, dw = torch.autograd.grad(y, (xg, wg), g)
+        torch.cuda.synchronize()
+        return (y, dx, dw), forward
+
+    want, _ = value_and_grads(lambda x, w: cheb_conv(x, plain, w))
+    counts = {}
+    zero_counts()
+    for entry in ("cheb2_banded_v6", "cheb2_banded_v7"):
+        got, forward = value_and_grads(lambda x, w: getattr(ck, entry)(x, op, w))
+        for name, a, b in zip(("y", "dx", "dW"), got, want):
+            held_to(f"{entry} autograd {name} vs the plain conv, x[{B},{P},{C}] F={F} padded f32",
+                    a.detach().cpu().numpy(), b.detach().cpu().numpy(), rel=1e-5)
+        counts[f"{entry} forward"] = forward
+    after = read_counts()
+    counts.update(cheb2_ring=after["ring_launches"], cheb2_ring2=after["ring2_launches"])
+    log(f"ring main path: launches {json.dumps(counts)}; phase {time.perf_counter() - t_phase:.2f} s")
+    if (counts["cheb2_banded_v6 forward"] != (1, 0) or counts["cheb2_banded_v7 forward"] != (1, 1)
+            or counts["cheb2_ring"] != 1 or counts["cheb2_ring2"] != 1
+            or not only(after, "ring_launches", "ring2_launches")):
+        raise AssertionError(f"ring main path: launches {counts}, expected one of each ring "
+                             "kernel in the forwards and none in the backwards")
+    return records, refused, counts
 
 
 def lab_phase(smi):
@@ -431,7 +705,7 @@ def lab_phase(smi):
 
     lines = []
     # ---- the lab's main path: every count at 0 just before, read just after
-    ck.launches = ck.bwd_launches = ck.fused1_launches = ck.fused_launches = ck.bm_launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for argv in LAB_RUNS:
         buf = io.StringIO()
@@ -688,24 +962,25 @@ def run_phase(cfg):
     from cape_tpu_torch.apps.main import restore_params, run
     from cape_tpu_torch.data.synthetic import synthetic_bodydata
     from cape_tpu_torch.models.cape import CAPE
-    from cape_tpu_torch.ops.kernels import cheb_kernel
 
     run_cfg = cfg.replace(name="chip_smoke_train", mode="train", num_epochs=2)
     data = synthetic_bodydata(n_train=64, n_test=32, num_verts=6890, seed=cfg.seed)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_run_")
     try:
         # ---- the train main path: every count at 0 just before, read just after
-        cheb_kernel.launches = cheb_kernel.bwd_launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         trainer = run(run_cfg, workdir, device="cuda", data=data)
         torch.cuda.synchronize()
-        counts = (cheb_kernel.launches, cheb_kernel.bwd_launches)
+        after = read_counts()
+        counts = (after["launches"], after["bwd_launches"])
         steps = trainer.state.step
         evals = run_cfg.num_epochs + 1   # one val batch per epoch, one test batch
         want = (FWD_PER_STEP * steps + FWD_PER_EVAL * evals, BWD_PER_STEP * steps)
         log(f"train mode run(): {time.perf_counter() - t0:.2f} s, {steps} steps, "
-            f"{evals} eval batches, band_apply launches (forward, backward) {counts}")
-        if steps != 2 or counts != want:
+            f"{evals} eval batches, band_apply launches (forward, backward) {counts}; "
+            f"all counts {json.dumps(after)}")
+        if steps != 2 or counts != want or not only(after, "launches", "bwd_launches"):
             raise AssertionError(f"run(): {steps} steps, launches {counts}, expected {want}")
         restored = restore_params(run_cfg, CAPE(run_cfg), trainer.ctx, workdir)
         trained = trainer.model.state_dict()
@@ -730,6 +1005,7 @@ def run_phase(cfg):
 
 
 def main():
+    t_start = time.perf_counter()
     smi = device_phase()
     from cape_tpu_torch.apps.inference import InferenceEngine
     from cape_tpu_torch.apps.main import build_context
@@ -751,6 +1027,7 @@ def main():
     bwd_f32 = [r for r in bwd_records if r["dtype"] == "float32"]
     fused_records = fused_phase(ctx, smi)
     bm_records = bm_phase(ctx, smi)
+    ring_records, ring_refused, ring_counts = ring_phase(ctx, smi)
 
     model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
     n_params = sum(p.numel() for p in model.parameters())
@@ -762,16 +1039,17 @@ def main():
     pose, clo = golden["pose"], golden["clo"]
 
     # ---- the main path: every count at 0 just before, read just after
-    cheb_kernel.launches = 0
+    zero_counts()
     engine.calls = dict.fromkeys(engine.calls, 0)
     t0 = time.perf_counter()
     health = client.get("/health")
     served = requests(client, pose, clo)
     stats = client.get("/stats")
-    launches = cheb_kernel.launches
+    serve_counts = read_counts()
+    launches = serve_counts["launches"]
     calls = dict(engine.calls)
     log(f"main path: {time.perf_counter() - t0:.2f} s, device calls {calls}, "
-        f"band_apply launches {launches}")
+        f"band_apply launches {launches}; all counts {json.dumps(serve_counts)}")
     log(f"/health {json.dumps(health)}")
     log(f"/stats {json.dumps(stats)}")
     stop_server(httpd, thread)
@@ -779,8 +1057,9 @@ def main():
         raise AssertionError(f"/health: {health}")
     if calls["decode"] != 4 or calls["encode"] != 2:
         raise AssertionError(f"expected 4 decode and 2 encode device calls, got {calls}")
-    if launches != 7 * (calls["decode"] + calls["encode"]):
-        raise AssertionError(f"{launches} launches for {calls}: expected 7 per decode/encode call")
+    if launches != 7 * (calls["decode"] + calls["encode"]) or not only(serve_counts, "launches"):
+        raise AssertionError(f"{serve_counts} launches for {calls}: expected 7 band_apply per "
+                             "decode/encode call and no other kernel")
 
     # ---- the plain route on the same requests
     engine_plain = InferenceEngine(model, ctx_plain, cfg.batch_size)
@@ -827,6 +1106,8 @@ def main():
     with open(RECORDS, "w") as f:
         json.dump({"device": smi, "band_apply": records, "band_apply_bwd": bwd_records,
                    "cheb2_fused": fused_records, "band_apply_bm": bm_records,
+                   "cheb2_ring": {"records": ring_records, "refused": ring_refused,
+                                  "main_path_launches": ring_counts},
                    "lab": lab_lines, "lab_launches": lab_counts}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
@@ -838,11 +1119,14 @@ def main():
         # the serve and train-mode main paths' forward launches
         "launches": launches + run_fwd,
         # worst f32 error over the batch-32 shapes of serving and training;
-        # times summed over the seven band applies of one batch-32 decode
+        # times and bounds summed over the seven band applies of one
+        # batch-32 decode
         "max_abs_err": max(r["max_abs_err"] for r in records
                            if "ms" in r and r["dtype"] == "float32"),
         "ms": sum(r["ms"] for r in on_path),
         "plain_ms": sum(r["plain_ms"] for r in on_path),
+        **summed_bound(on_path),
+        "library_ms": sum(r["library_ms"] for r in on_path),
     }, {
         "name": "band_apply_bwd",
         "route": "cuda",
@@ -850,35 +1134,57 @@ def main():
         "replaces": REPLACES_BWD,
         "launches": run_bwd,
         # worst f32 error of the addend variant over the train step's
-        # shapes; times summed over the 17 backward applies of one step
+        # shapes; times and bounds summed over the 17 backward applies of
+        # one step
         "max_abs_err": max(r["max_abs_err"] for r in bwd_f32),
         "ms": per_step(bwd_f32, "ms"),
         "plain_ms": per_step(bwd_f32, "plain_ms"),
+        **summed_bound(bwd_f32, lambda r: TRAIN_APPLIES[(r["P"], r["C"])]),
+        "library_ms": per_step(bwd_f32, "library_ms"),
     }]
-    # rows 1, 4 and 3: launches from the lab; the worst f32 error over the
-    # fused and bm phases; times summed over the batch-32 f32 cases (every
-    # FUSED_CONVS shape, padded; every banded op)
+    # rows 1, 4, 3, 5 and 6: launches from the lab (rows 1, 3, 4) and from
+    # the ring phase's main path (rows 5, 6); the worst f32 error over their
+    # phases; times and bounds summed over the batch-32 f32 cases (every
+    # FUSED_CONVS shape, padded, that the kernel ran; every banded op). No
+    # single library call computes the fused conv.
     fused_err = lambda g: max(r["max_abs_err"] for r in fused_records
                               if r["dtype"] == "float32" and "max_abs_err" in r and (r["G"] == 1) == g)
     fused_t = [r for r in fused_records if "ms" in r and r["dtype"] == "float32" and r["B"] == 32]
     bm_f32 = [r for r in bm_records if r["dtype"] == "float32"]
     bm_t = [r for r in bm_f32 if r["B"] == 32]
+
+    def ring_row(name, replaces, R, key):
+        timed = [r for r in ring_records if key in r and r["dtype"] == "float32" and r["B"] == 32]
+        return {
+            "name": name, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
+            "launches": ring_counts["cheb2_ring" if R == 1 else "cheb2_ring2"],
+            "max_abs_err": max(r["max_abs_err"] for r in ring_records
+                               if r.get("R") == R and r["dtype"] == "float32"),
+            "ms": sum(r[key] for r in timed), "plain_ms": sum(r["plain_ms"] for r in timed),
+            **summed_bound(timed), "library_ms": None,
+        }
+
     summary += [{
         "name": "cheb2_fused (group 1)", "route": "cuda", "source": FUSED_SOURCE,
         "replaces": REPLACES_V1, "launches": lab_counts["cheb2_fused_g1"],
         "max_abs_err": fused_err(True),
         "ms": sum(r["g1_ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
+        **summed_bound(fused_t), "library_ms": None,
     }, {
         "name": "band_apply_bm", "route": "cuda", "source": BM_SOURCE,
         "replaces": REPLACES_BM, "launches": lab_counts["band_apply_bm"],
         "max_abs_err": max(r["max_abs_err"] for r in bm_f32),
         "ms": sum(r["ms"] for r in bm_t), "plain_ms": sum(r["plain_ms"] for r in bm_t),
+        **summed_bound(bm_t), "library_ms": sum(r["library_ms"] for r in bm_t),
     }, {
         "name": "cheb2_fused (v5 group)", "route": "cuda", "source": FUSED_SOURCE,
         "replaces": REPLACES_V5, "launches": lab_counts["cheb2_fused"],
         "max_abs_err": fused_err(False),
         "ms": sum(r["ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
-    }]
+        **summed_bound(fused_t), "library_ms": None,
+    }, ring_row("cheb2_ring (v6, R=1)", REPLACES_V6, 1, "ms"),
+        ring_row("cheb2_ring (v7, R=2)", REPLACES_V7, 2, "r2_ms")]
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.2f} s in all")
     log(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

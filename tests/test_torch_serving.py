@@ -246,17 +246,43 @@ def test_restore_params_from_jax_checkpoint(engines, tmp_path):
 
 
 def test_import_loads_no_jax_flax_or_yaml():
-    """Every module of the port imports without jax, flax, optax or yaml."""
+    """Every module of the port, and chip_smoke.py, imports without jax,
+    flax, optax or yaml, and without any module of the JAX package
+    (`cape_tpu` or `cape_tpu.*`)."""
     code = (
         "import importlib, pkgutil, sys, cape_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(cape_tpu_torch.__path__, 'cape_tpu_torch.')]\n"
         "assert 'cape_tpu_torch.train.loop' in names and 'cape_tpu_torch.losses' in names, names\n"
-        "for n in names: importlib.import_module(n)\n"
-        "print(sorted(m for m in ('jax', 'flax', 'optax', 'yaml') if m in sys.modules))"
+        "assert 'cape_tpu_torch.meshops.assets' in names, names\n"
+        "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', 'yaml', 'cape_tpu')\n"
+        "             or m.startswith('cape_tpu.')))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120, check=True)
+                         timeout=120, check=True, cwd=ROOT)
     assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """With no GPU, the server's and the train mode's CLI and `run()` raise
+    RuntimeError naming `--device cpu` when the CPU was not asked for, before
+    they build anything; `--device cpu` passes the check (the CLI test above
+    serves on the CPU)."""
+    from cape_tpu_torch.apps import main as app_main
+    from cape_tpu_torch.apps import server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    built = []
+    monkeypatch.setattr(app_main, "build_context", lambda *a, **k: built.append(1))
+    args = ["--config", FLAGSHIP, "--name", "x"]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        server.main(args + ["--fresh-init"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        app_main.main(args + ["--mode", "train", "--workdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        app_main.run(CAPEConfig(**SMALL), str(tmp_path))
+    assert not built
+    app_main.require_device("cpu")
 
 
 def test_server_cli_serves_and_stops_on_sigterm():
