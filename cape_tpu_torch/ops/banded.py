@@ -16,6 +16,10 @@ The apply is a `torch.autograd.Function` whose backward applies the
 transpose, packed in the same banded form (`t_blocks`), as the JAX custom
 VJP does: autograd's own backward of the shifted einsum would build
 layout-transposed copies of every shifted view.
+
+Each op also carries the gather pack of its blocks and of its transpose
+(`gather_pack`): the band's non-zeros as a fixed-width list per output
+row, which the band-gather kernel reads in place of the dense tiles.
 """
 
 from __future__ import annotations
@@ -73,6 +77,67 @@ def padded_size(n: int, block: int = 128) -> int:
     return -(-n // block) * block
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherPack:
+    """The non-zeros of banded blocks [S, T, rb, cb] as a fixed-width list
+    per output row (the ELL layout): output row r = t*rb + i sums
+    vals[r, w] * x[cols[r, w]] over w < W, the largest row count of
+    non-zeros. Entries are in ascending column order; unused slots hold
+    column -1 and value 0. (S, T, cb, pad_left) record the blocks and
+    offset the pack was built for."""
+
+    cols: torch.Tensor                                 # int32 [T*rb, W]
+    vals: torch.Tensor                                 # float32 [T*rb, W]
+    S: int
+    T: int
+    cb: int
+    pad_left: int
+
+    @property
+    def width(self) -> int:
+        return self.cols.shape[1]
+
+    def to(self, device) -> "GatherPack":
+        return dataclasses.replace(self, cols=self.cols.to(device), vals=self.vals.to(device))
+
+    def check(self, name: str, blocks: torch.Tensor, pad_left: int) -> None:
+        """Raise unless the pack was built for blocks of this shape at this
+        pad_left."""
+        built = (self.S, self.T, self.cols.shape[0] // self.T, self.cb)
+        if tuple(blocks.shape) != built or pad_left != self.pad_left:
+            raise ValueError(
+                f"{name}: the gather pack was built for blocks {built} at "
+                f"pad_left={self.pad_left}, not blocks {tuple(blocks.shape)} at pad_left={pad_left}"
+            )
+
+
+def gather_pack(blocks: np.ndarray, pad_left: int) -> GatherPack:
+    """The gather pack of banded blocks [S, T, rb, cb] (numpy): the entry
+    blocks[k, t, i, j] of output row t*rb + i reads x row
+    (t+k)*cb + j - pad_left. Entries with a negative column meet the zero
+    pad and are dropped; columns past the end of x are kept (the kernel
+    masks them at run time). Values in float32. The ELL layout of the JAX
+    package's `_pack_ell` (cape_tpu/ops/sparse.py), derived from the band
+    blocks."""
+    S, T, rb, cb = blocks.shape
+    k, t, i, j = np.unravel_index(np.flatnonzero(blocks != 0), blocks.shape)
+    rows = t * rb + i
+    cols = (t + k) * cb + j - pad_left
+    vals = blocks[k, t, i, j].astype(np.float32)
+    keep = cols >= 0
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    counts = np.bincount(rows, minlength=T * rb)
+    width = max(1, int(counts.max(initial=0)))
+    slot = np.arange(len(rows)) - np.repeat(np.cumsum(counts) - counts, counts)
+    pc = np.full((T * rb, width), -1, np.int32)
+    pv = np.zeros((T * rb, width), np.float32)
+    pc[rows, slot] = cols
+    pv[rows, slot] = vals
+    return GatherPack(torch.from_numpy(pc), torch.from_numpy(pv), S, T, cb, int(pad_left))
+
+
 @dataclasses.dataclass
 class BandedOp:
     """y[..., i, c] = sum_j M[i, j] x[..., j, c] for banded M.
@@ -94,6 +159,8 @@ class BandedOp:
     t_pad_right: int
     padded: bool = False
     allow_pallas: bool = True
+    pack: GatherPack | None = None                     # gather pack of blocks
+    t_pack: GatherPack | None = None                   # and of t_blocks
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.padded and x.shape[-2] != self.p_cols:
@@ -118,8 +185,10 @@ class BandedOp:
         return self.n_rows == self.n_cols and self.row_block == 128 and self.col_block == 128
 
     def to(self, device) -> "BandedOp":
+        move = lambda p: None if p is None else p.to(device)
         return dataclasses.replace(
-            self, blocks=self.blocks.to(device), t_blocks=self.t_blocks.to(device)
+            self, blocks=self.blocks.to(device), t_blocks=self.t_blocks.to(device),
+            pack=move(self.pack), t_pack=move(self.t_pack),
         )
 
 
@@ -159,16 +228,18 @@ def banded_from_scipy(
     padded: bool = False, allow_pallas: bool = True, device="cpu",
 ) -> BandedOp:
     """Pack a (pre-permuted) banded sparse matrix and its transpose into
-    shifted block form. padded=True builds the op in the persistent-padded
-    layout."""
+    shifted block form, with the gather pack of each. padded=True builds
+    the op in the persistent-padded layout. The packs hold the blocks'
+    values as `dtype` rounds them."""
     csr = sp.csr_matrix(m)
     R, C = csr.shape
     blocks, cb, pad_left, pad_right = _pack_blocks(csr, row_block)
     t_blocks, _, t_pad_left, t_pad_right = _pack_blocks(sp.csr_matrix(m.T), row_block)
-    as_tensor = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
+    blocks, t_blocks = (torch.as_tensor(a).to(dtype) for a in (blocks, t_blocks))
+    pack = lambda b, pad: gather_pack(b.float().numpy(), pad).to(device)
     return BandedOp(
-        blocks=as_tensor(blocks),
-        t_blocks=as_tensor(t_blocks),
+        blocks=blocks.to(device),
+        t_blocks=t_blocks.to(device),
         n_rows=R,
         n_cols=C,
         row_block=row_block,
@@ -179,4 +250,6 @@ def banded_from_scipy(
         t_pad_right=t_pad_right,
         padded=padded,
         allow_pallas=allow_pallas,
+        pack=pack(blocks, pad_left),
+        t_pack=pack(t_blocks, t_pad_left),
     )

@@ -73,10 +73,10 @@ def _load(name: str, fn: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
 
 
 @functools.cache
-def band_apply_lib() -> ctypes.CDLL:
-    """The band-apply kernel's library (kernel 2), built on first use."""
-    # x, blocks, addend, y; dtype, B, rows_in, C, S, T, pad_left, rows_out
-    return _load("band_apply", "cape_band_apply", n_ints=8, n_ptrs=4)
+def band_gather_lib() -> ctypes.CDLL:
+    """The band-gather kernel's library (kernels 2 and 3), built on first use."""
+    # x, cols, vals, addend, y; dtype, B, rows_in, C, W, rows_out
+    return _load("band_gather", "cape_band_gather", n_ints=6, n_ptrs=5)
 
 
 @functools.cache
@@ -84,13 +84,6 @@ def cheb2_fused_lib() -> ctypes.CDLL:
     """The fused K=2 conv kernel's library (kernels 1 and 4), built on first use."""
     # x, blocks, w0, w1, y; dtype, B, rows_in, C, F, S, T, pad_left, rows_out, group
     return _load("cheb2_fused", "cape_cheb2_fused", n_ints=10, n_ptrs=5)
-
-
-@functools.cache
-def band_apply_bm_lib() -> ctypes.CDLL:
-    """The batch-major band-apply kernel's library (kernel 3), built on first use."""
-    # x, blocks, y; dtype, B, rows_in, C, S, T, cb, pad_left, n_rows
-    return _load("band_apply_bm", "cape_band_apply_bm", n_ints=9, n_ptrs=3)
 
 
 @functools.cache

@@ -6,12 +6,13 @@ Counterparts of the entries of `cape_tpu/ops/pallas/cheb_kernel.py`:
   * `cheb2_banded_v3` (large batch, `cheb2_banded_pallas_v3`): y = x @ W0 +
     (L~ x) @ W1 as a `torch.autograd.Function` mirroring the JAX custom VJP
     (`_v3_fwd` / `_v3_bwd`). The band apply runs in the CUDA kernel
-    `csrc/band_apply.cu` in both directions (it replaces the TPU kernel
-    `_pallas_band_apply_v2`); the projections and the weight gradients stay
-    `torch.matmul`, as JAX leaves them to XLA. The kernel reads the
-    batch-major [B, P, C] activations in place, so the vertex-major
-    transposes and the halo pad of the TPU version are gone; its masked
-    reads take the place of the pad.
+    `csrc/band_gather.cu` in both directions (it replaces the TPU kernel
+    `_pallas_band_apply_v2`), over the op's gather pack (the band's
+    non-zeros per output row, `ops.banded.gather_pack`); the projections
+    and the weight gradients stay `torch.matmul`, as JAX leaves them to
+    XLA. The kernel reads the batch-major [B, P, C] activations in place,
+    so the vertex-major transposes and the halo pad of the TPU version are
+    gone; its masked reads take the place of the pad.
   * `cheb2_banded_v2` (the opt-in small-batch route, `cheb2_banded_pallas_v2`):
     the same band-apply kernel forward, projections in `torch.matmul`, the
     plain backward of JAX's `_bwd`.
@@ -28,8 +29,10 @@ Counterparts of the entries of `cape_tpu/ops/pallas/cheb_kernel.py`:
     walks runs of consecutive row tiles with a shared-memory ring of x tiles,
     one or two tiles per step, and the same plain backward.
   * `banded_apply_bm` (TPU kernel `banded_apply_bm`): y = M x for a banded M
-    with any column block, batch-major, in the CUDA kernel
-    `csrc/band_apply_bm.cu`.
+    with any column block, batch-major, in the same band-gather kernel.
+
+The band-apply wrappers take the gather pack of their blocks (`pack=`):
+a CUDA launch needs it, and the wrappers never build one.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from cape_tpu_torch.ops.banded import apply_blocks
+from cape_tpu_torch.ops.banded import GatherPack, apply_blocks
 
 RB = 128
 
@@ -117,39 +120,83 @@ def band_apply_plain(x, blocks, pad_left: int, rows_out: int, addend=None) -> to
     return y.to(x.dtype)
 
 
+def band_gather_plain(x, pack: GatherPack, rows_out: int, addend=None) -> torch.Tensor:
+    """Plain PyTorch version of the band-gather kernel, with its arithmetic:
+
+        y[b, r, :] = sum_w vals[r, w] x[b, cols[r, w], :]  (+ addend[b, r, :])
+
+    for r < rows_out, rows of x outside [0, rows_in) read as 0; each value
+    rounded to x's dtype, the products summed in f32 (f64 for f64 inputs,
+    which the kernel does not take), the addend added at that precision,
+    one rounding to x's dtype at the end."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    cols = pack.cols[:rows_out].to(x.device, torch.int64)
+    vals = pack.vals[:rows_out].to(x.device).to(x.dtype).to(acc)
+    inside = (cols >= 0) & (cols < x.shape[1])
+    g = x.to(acc).index_select(1, torch.where(inside, cols, 0).reshape(-1))
+    g = g.reshape(x.shape[0], rows_out, pack.width, x.shape[2])
+    y = torch.where(inside[..., None], g * vals[..., None], 0).sum(2)
+    if addend is not None:
+        y = y + addend.to(acc)
+    return y.to(x.dtype)
+
+
+def _check_pack(name: str, pack: GatherPack | None, blocks: torch.Tensor, pad_left: int) -> None:
+    """A launch needs the gather pack of exactly these blocks at this
+    pad_left; the wrappers never build one."""
+    if pack is None:
+        raise ValueError(f"{name}: a kernel launch needs the op's gather pack (pack=op.pack)")
+    pack.check(name, blocks, pad_left)
+
+
+def _gather(name: str, x: torch.Tensor, pack: GatherPack, rows_out: int,
+            addend: torch.Tensor | None) -> torch.Tensor:
+    """Launch `csrc/band_gather.cu` on a checked CUDA x [B, rows_in, C]."""
+    if pack.cols.device != x.device or pack.vals.device != x.device:
+        raise TypeError(f"{name}: the gather pack is on {pack.cols.device}, x on {x.device}")
+    B, rows_in, C = x.shape
+    from cape_tpu_torch.ops.kernels.build import band_gather_lib
+
+    lib = band_gather_lib()
+    y = torch.empty((B, rows_out, C), dtype=x.dtype, device=x.device)
+    err = lib.cape_band_gather(
+        x.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(),
+        None if addend is None else addend.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
+        B, rows_in, C, pack.width, rows_out, _stream(x),
+    )
+    _raise_on(name, lib, err, f"x {tuple(x.shape)}, pack width {pack.width}, rows_out={rows_out}")
+    return y
+
+
 def band_apply(
     x: torch.Tensor, blocks: torch.Tensor, pad_left: int, rows_out: int,
-    addend: torch.Tensor | None = None,
+    addend: torch.Tensor | None = None, pack: GatherPack | None = None,
 ) -> torch.Tensor:
     """Band apply of x [B, rows_in, C] with blocks [S, T, 128, 128] of x's
     dtype -> [B, rows_out, C], plus `addend` [B, rows_out, C] if given.
-    CUDA tensors launch the kernel; CPU and meta tensors take
-    band_apply_plain. A launch with an addend counts in `bwd_launches`
-    (only the backward of cheb2_banded_v3 passes one), else in `launches`."""
+    CUDA tensors launch the band-gather kernel over `pack`, the gather pack
+    of the blocks (required there); CPU and meta tensors take
+    band_apply_plain. A pack given is checked against the blocks on every
+    device. A launch with an addend counts in `bwd_launches` (only the
+    backward of cheb2_banded_v3 passes one), else in `launches`."""
     global launches, bwd_launches
+    if pack is not None or x.device.type not in ("cpu", "meta"):
+        _check_pack("band_apply", pack, blocks, pad_left)
     if x.device.type in ("cpu", "meta"):
         return band_apply_plain(x, blocks, pad_left, rows_out, addend)
-    _check_cuda("band_apply", x, blocks=blocks, addend=addend)
+    _check_cuda("band_apply", x, addend=addend)
     if x.dim() != 3 or blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
         raise ValueError(
             f"band_apply: x {tuple(x.shape)} must be [B, rows, C] and blocks "
             f"{tuple(blocks.shape)} [S, T, {RB}, {RB}]"
         )
-    S, T = blocks.shape[:2]
-    B, rows_in, C = x.shape
+    T = blocks.shape[1]
+    B, _, C = x.shape
     if not 0 < rows_out <= T * RB or pad_left < 0:
         raise ValueError(f"band_apply: rows_out={rows_out}, pad_left={pad_left}, T={T}")
     if addend is not None and tuple(addend.shape) != (B, rows_out, C):
         raise ValueError(f"band_apply: addend {tuple(addend.shape)} must be [{B}, {rows_out}, {C}]")
-    from cape_tpu_torch.ops.kernels.build import band_apply_lib
-
-    lib = band_apply_lib()
-    y = torch.empty((B, rows_out, C), dtype=x.dtype, device=x.device)
-    err = lib.cape_band_apply(
-        x.data_ptr(), blocks.data_ptr(), None if addend is None else addend.data_ptr(),
-        y.data_ptr(), _DTYPE_CODES[x.dtype], B, rows_in, C, S, T, pad_left, rows_out, _stream(x),
-    )
-    _raise_on("band_apply", lib, err, f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}")
+    y = _gather("band_apply", x, pack, rows_out, addend)
     if addend is None:
         launches += 1
     else:
@@ -181,16 +228,18 @@ class _Cheb2V3(torch.autograd.Function):
 
         dW0 = x^T g,  dW1 = (L~ x)^T g,  dx = g w0^T + L~ (g w1^T)
 
-    L~ is symmetric, so dx reuses the forward blocks; its band apply takes
-    g w0^T as the kernel's addend, so dx is written once. In the padded
-    layout g's tail rows are zero (see ops.banded.BandedMatvec), so the
-    tail rows of x, which may hold anything finite, add nothing to dW0."""
+    L~ is symmetric, so dx reuses the forward blocks and pack; its band
+    apply takes g w0^T as the kernel's addend, so dx is written once. In
+    the padded layout g's tail rows are zero (see ops.banded.BandedMatvec),
+    so the tail rows of x, which may hold anything finite, add nothing to
+    dW0."""
 
     @staticmethod
-    def forward(ctx, x, w0, w1, blocks, pad_left, rows_out):
-        lx = band_apply(x, blocks, pad_left, rows_out)
+    def forward(ctx, x, w0, w1, blocks, pad_left, rows_out, pack):
+        lx = band_apply(x, blocks, pad_left, rows_out, pack=pack)
         ctx.save_for_backward(x, lx, w0, w1, blocks)
         ctx.band = (pad_left, rows_out)
+        ctx.pack = pack
         return torch.matmul(x, w0) + torch.matmul(lx, w1)
 
     @staticmethod
@@ -205,8 +254,8 @@ class _Cheb2V3(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gw0 = torch.matmul(g, w0.T).contiguous()
             gw1 = torch.matmul(g, w1.T).contiguous()
-            dx = band_apply(gw1, blocks, *ctx.band, addend=gw0)
-        return dx, dw0, dw1, None, None, None
+            dx = band_apply(gw1, blocks, *ctx.band, addend=gw0, pack=ctx.pack)
+        return dx, dw0, dw1, None, None, None, None
 
 
 def cheb2_banded_v3(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Tensor:
@@ -215,7 +264,8 @@ def cheb2_banded_v3(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Ten
     pad_left, _, rows_out = _band_meta(band_op, x)
     w = weight.to(x.dtype)
     x = x.contiguous()  # a no-op unless x is a view (the kernel reads it flat)
-    return _Cheb2V3.apply(x, w[0], w[1], band_op.blocks.to(x.dtype), pad_left, rows_out)
+    return _Cheb2V3.apply(x, w[0], w[1], band_op.blocks.to(x.dtype), pad_left, rows_out,
+                          band_op.pack)
 
 
 # ------------------------------------------------------- the fused conv (kernels 1, 4)
@@ -453,17 +503,17 @@ class _Cheb2V2(torch.autograd.Function):
     product in x's dtype; JAX's plain `_bwd` backward."""
 
     @staticmethod
-    def forward(ctx, x, w0, w1, blocks, meta):
+    def forward(ctx, x, w0, w1, blocks, meta, pack):
         ctx.save_for_backward(x, w0, w1, blocks)
         ctx.meta = meta
-        lx = band_apply(x, blocks, meta[0], meta[2])
+        lx = band_apply(x, blocks, meta[0], meta[2], pack=pack)
         return torch.matmul(x, w0) + torch.matmul(lx, w1)
 
     @staticmethod
     def backward(ctx, g):
         x, w0, w1, blocks = ctx.saved_tensors
         dx, dw0, dw1 = _plain_bwd(ctx.meta, x, blocks, w0, w1, g, ctx.needs_input_grad)
-        return dx, dw0, dw1, None, None
+        return dx, dw0, dw1, None, None, None
 
 
 def cheb2_banded_v2(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Tensor:
@@ -472,7 +522,8 @@ def cheb2_banded_v2(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Ten
     weight: [2, C, F]."""
     meta = _band_meta(band_op, x, natural_only="cheb2_banded_v2")
     w = weight.to(x.dtype)
-    return _Cheb2V2.apply(x.contiguous(), w[0], w[1], band_op.blocks.to(x.dtype), meta)
+    return _Cheb2V2.apply(x.contiguous(), w[0], w[1], band_op.blocks.to(x.dtype), meta,
+                          band_op.pack)
 
 
 # -------------------------------------------------- the batch-major band apply (kernel 3)
@@ -487,17 +538,22 @@ def banded_apply_bm_plain(x, blocks, pad_left: int, pad_right: int, n_rows: int)
 
 def banded_apply_bm(
     x: torch.Tensor, blocks: torch.Tensor, pad_left: int, pad_right: int, n_rows: int,
+    pack: GatherPack | None = None,
 ) -> torch.Tensor:
     """y = M x for a banded M packed as blocks [S, T, 128, cb] with any column
     block cb; x [B, n_cols, C] -> [B, n_rows, C] (the signature of the JAX
-    `banded_apply_bm`). CUDA tensors launch `csrc/band_apply_bm.cu`, which
-    reads rows outside x as zero, so pad_right only has to reach the end of
-    the last window; CPU and meta tensors take banded_apply_bm_plain.
-    Each launch counts in `bm_launches`."""
+    `banded_apply_bm`). CUDA tensors launch the band-gather kernel over
+    `pack`, the gather pack of the blocks (required there); it reads rows
+    outside x as zero, so pad_right only has to reach the end of the last
+    window. CPU and meta tensors take banded_apply_bm_plain. A pack given
+    is checked against the blocks on every device. Each launch counts in
+    `bm_launches`."""
     global bm_launches
+    if pack is not None or x.device.type not in ("cpu", "meta"):
+        _check_pack("banded_apply_bm", pack, blocks, pad_left)
     if x.device.type in ("cpu", "meta"):
         return banded_apply_bm_plain(x, blocks, pad_left, pad_right, n_rows)
-    _check_cuda("banded_apply_bm", x, blocks=blocks)
+    _check_cuda("banded_apply_bm", x)
     if x.dim() != 3 or blocks.dim() != 4 or blocks.shape[2] != RB:
         raise ValueError(
             f"banded_apply_bm: x {tuple(x.shape)} must be [B, rows, C] and blocks "
@@ -511,14 +567,6 @@ def banded_apply_bm(
             f"banded_apply_bm: n_rows={n_rows}, pad_left={pad_left}, pad_right={pad_right} "
             f"for {rows_in} rows and blocks {tuple(blocks.shape)}"
         )
-    from cape_tpu_torch.ops.kernels.build import band_apply_bm_lib
-
-    lib = band_apply_bm_lib()
-    y = torch.empty((B, n_rows, C), dtype=x.dtype, device=x.device)
-    err = lib.cape_band_apply_bm(
-        x.data_ptr(), blocks.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
-        B, rows_in, C, S, T, cb, pad_left, n_rows, _stream(x),
-    )
-    _raise_on("band_apply_bm", lib, err, f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}")
+    y = _gather("banded_apply_bm", x, pack, n_rows, None)
     bm_launches += 1
     return y

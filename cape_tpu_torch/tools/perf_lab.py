@@ -173,21 +173,22 @@ def cmd_conv(args):
 
 
 class _BandVM(torch.autograd.Function):
-    """L~ applied to vertex-major x [V, M] by the band-apply kernel; the
-    backward is the same apply (the rescaled Laplacian is symmetric)."""
+    """L~ applied to vertex-major x [V, M] by the band-apply kernel over the
+    op's gather pack; the backward is the same apply (the rescaled
+    Laplacian is symmetric)."""
 
     @staticmethod
-    def forward(ctx, xv, blocks, pad_left):
+    def forward(ctx, xv, blocks, pad_left, pack):
         from cape_tpu_torch.ops.kernels.cheb_kernel import band_apply
 
         ctx.save_for_backward(blocks)
-        ctx.pad_left = pad_left
-        return band_apply(xv.contiguous()[None], blocks, pad_left, xv.shape[0])[0]
+        ctx.pad_left, ctx.pack = pad_left, pack
+        return band_apply(xv.contiguous()[None], blocks, pad_left, xv.shape[0], pack=pack)[0]
 
     @staticmethod
     def backward(ctx, g):
         (blocks,) = ctx.saved_tensors
-        return _BandVM.apply(g, blocks, ctx.pad_left), None, None
+        return _BandVM.apply(g, blocks, ctx.pad_left, ctx.pack), None, None, None
 
 
 def cmd_layout(args):
@@ -220,7 +221,7 @@ def cmd_layout(args):
             return project(xv, lx.reshape(T * rb, -1)[:V])
 
         def conv_vm_kernel(xv):
-            return project(xv, _BandVM.apply(xv, blocks, pl_))
+            return project(xv, _BandVM.apply(xv, blocks, pl_, lap.pack))
 
         r = _timed_fwd_bwd({"bm": (lambda x: _plain_conv(x, lap, w), xb), "vm": (conv_vm, xv),
                             "vm_kernel": (conv_vm_kernel, xv)})
@@ -304,7 +305,7 @@ def cmd_bmapply(args):
         xcf = x.transpose(1, 2).contiguous()
 
         def kernel_apply(x):
-            return banded_apply_bm(x, blocks, pl_, pr_, V)
+            return banded_apply_bm(x, blocks, pl_, pr_, V, pack=lap.pack)
 
         def apply_cf(xcf):
             """Channels-first [B, C, V]: the vertex axis minor."""

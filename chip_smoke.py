@@ -5,16 +5,18 @@
 Phases (any failure raises; the script then exits non-zero and prints no
 result line):
   1. device: a CUDA GPU must be present (there is no CPU path); TF32 off.
-  2. build: compile the four sources of csrc/ with nvcc, all at once;
+  2. build: compile the three sources of csrc/ with nvcc, all at once;
      log ptxas's registers and spills.
-  3. kernel: the band-apply kernel against its plain PyTorch version at
-     every batch-32 and batch-64 shape of the flagship serving path, one
-     natural-layout and one ragged-column case, in f32 and bf16; then its
+  3. kernel: the band-apply kernel (csrc/band_gather.cu over the op's
+     gather pack) against its plain PyTorch version at every batch-32 and
+     batch-64 shape of the flagship serving path, one natural-layout and
+     one ragged-column case, in f32 and bf16; then its
      addend variant (the backward pass of the conv) at every batch-32
      shape of the train step, the discriminator's [32, 512, 128] included,
      in f32 and bf16, with times against plain and against one library call
      (torch.sparse.mm of the operator as a CSR matrix; addmm with the
-     addend), which the port never calls.
+     addend), which the port never calls, and the achieved GB/s and share
+     of the bound.
   4. serve: the flagship preset (f32, batch 32, parameters from
      torch.Generator seed 0) behind the port's HTTP server on 127.0.0.1:0;
      /health, /sample (n=40: two padded decode calls), /encode, /decode,
@@ -43,10 +45,10 @@ result line):
      padded, f32 and bf16 (bf16 also against two controls that each drop
      one of its numerics); times against plain, the v3 route and a copy of
      L~x, the routes in turns, each event pair around 10 calls.
- 12. bm (after phase 11): the batch-major band-apply kernel (row 3) against
-     its plain version on every banded lap, down, up and down_d op, B = 16
-     and 32, C = 64, f32 and bf16, with times taken as in phase 11 (and
-     the library call in f32).
+ 12. bm (after phase 11): the batch-major band apply (row 3, the same
+     band-gather kernel) against its plain version on every banded lap,
+     down, up and down_d op, B = 16 and 32, C = 64, f32 and bf16, with
+     times taken as in phase 11 (and the library call in f32).
  13. ring (after phase 12): the ring conv kernel (rows 5 and 6, one and two
      row tiles per step) against its plain version at every FUSED_CONVS
      shape, B = 16 and 32, f32 and bf16, natural and padded, with the fused
@@ -89,9 +91,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PRESET = os.path.join(ROOT, "configs", "CAPE-affineconv_nz64_pose32_clotype32_male.yaml")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_flagship.npz")
 GOLDEN_TRAIN = os.path.join(ROOT, "tests", "data", "torch_golden_train.npz")
-KERNEL_SOURCE = "cape_tpu_torch/csrc/band_apply.cu"
+GATHER_SOURCE = "cape_tpu_torch/csrc/band_gather.cu"   # rows 2, 2b and 3
 FUSED_SOURCE = "cape_tpu_torch/csrc/cheb2_fused.cu"
-BM_SOURCE = "cape_tpu_torch/csrc/band_apply_bm.cu"
 RING_SOURCE = "cape_tpu_torch/csrc/cheb2_ring.cu"
 REPLACES = "cape_tpu/ops/pallas/cheb_kernel.py:168"  # _pallas_band_apply_v2
 REPLACES_BWD = "cape_tpu/ops/pallas/cheb_kernel.py:268"  # the apply in _v3_bwd
@@ -188,12 +189,11 @@ def build_phase():
     from cape_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    names = ("band_apply", "cheb2_fused", "band_apply_bm", "cheb2_ring")
+    names = ("band_gather", "cheb2_fused", "cheb2_ring")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
-    build.band_apply_lib()
+    build.band_gather_lib()
     build.cheb2_fused_lib()
-    build.band_apply_bm_lib()
     build.cheb2_ring_lib()
     log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -230,12 +230,20 @@ def apply_bound(blocks, B: int, rows_in: int, rows_out: int, C: int, dtype, adde
     """`bound` of a band apply y = M x (+ r): x read once, y written once (r
     read once), the band as its non-zero values with a 4-byte column index
     each; 2 operations per non-zero entry, sample and channel (and one add
-    per element of r)."""
+    per element of r). `bytes` is that byte count."""
     el = torch.empty((), dtype=dtype).element_size()
     rows = rows_in + rows_out * (2 if addend else 1)
     nnz = _nnz(blocks)
-    return bound(el * B * C * rows + nnz * (el + 4),
-                 2 * nnz * B * C + (B * rows_out * C if addend else 0), dtype)
+    nbytes = el * B * C * rows + nnz * (el + 4)
+    return {**bound(nbytes, 2 * nnz * B * C + (B * rows_out * C if addend else 0), dtype),
+            "bytes": nbytes}
+
+
+def rate(rec: dict) -> str:
+    """A timed band apply's achieved rate: its bound's bytes over its time,
+    and its share of the bound."""
+    return (f"{rec['bytes'] / rec['ms'] / 1e6:.0f} GB/s, "
+            f"{rec['bound_ms'] / rec['ms']:.1%} of the bound")
 
 
 def conv_bound(blocks, B: int, rows_in: int, rows_out: int, C: int, F: int, dtype) -> dict:
@@ -300,26 +308,24 @@ def kernel_phase(ctx, smi):
             blocks = op.blocks.to(dtype).contiguous()
             rows_out = P if padded else op.n_rows
             x = torch.randn((B, P, C), generator=gen, device="cuda").to(dtype)
-            y = band_apply(x, blocks, op.pad_left, rows_out)
+            y = band_apply(x, blocks, op.pad_left, rows_out, pack=op.pack)
             ref = band_apply_plain(x, blocks, op.pad_left, rows_out)
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             limit = 1e-5 * scale + 1e-6 if dtype == torch.float32 else bf16_ulp(scale)
             S, T = blocks.shape[:2]
-            nz = (blocks.float().reshape(S, T, 128, 4, 32).abs().amax(dim=(2, 4)) > 0)
             rec = dict(dtype=str(dtype).replace("torch.", ""), B=B, P=P, C=C, S=S, T=T,
-                       layout="padded" if padded else "natural", max_abs_err=err,
-                       max_rel_err=err / scale, limit=limit,
-                       nonzero_slabs=nz.float().mean().item())
-            log(f"kernel vs plain {rec['dtype']} x[{B},{P},{C}] blocks[{S},{T}] "
+                       W=op.pack.width, layout="padded" if padded else "natural",
+                       max_abs_err=err, max_rel_err=err / scale, limit=limit)
+            log(f"kernel vs plain {rec['dtype']} x[{B},{P},{C}] blocks[{S},{T}] W={rec['W']} "
                 f"{rec['layout']}: max_abs_err {err:.3e} rel {err / scale:.3e} "
                 f"(limit {limit:.3e})")
             if not err <= limit:
                 raise AssertionError(f"band_apply disagrees with its plain version: {rec}")
             if B == 32 and padded and (P, C) in TRAIN_APPLIES:
                 routes = {
-                    "ms": lambda: band_apply(x, blocks, op.pad_left, rows_out),
+                    "ms": lambda: band_apply(x, blocks, op.pad_left, rows_out, pack=op.pack),
                     "plain_ms": lambda: band_apply_plain(x, blocks, op.pad_left, rows_out),
                 }
                 if dtype == torch.float32:
@@ -327,13 +333,9 @@ def kernel_phase(ctx, smi):
                     routes["library_ms"] = lambda: torch.sparse.mm(A, xv)
                 rec.update(time_routes(routes))
                 rec.update(apply_bound(blocks, B, P, rows_out, C, dtype))
-                rec["dense_gflop"] = 2 * S * 128 * P * B * C / 1e9
                 lib = f", library {rec['library_ms']:.4f}" if "library_ms" in rec else ""
                 log(f"  time [{smi}]: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms{lib}, "
-                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-                    f"dense {rec['dense_gflop']:.2f} GFLOP -> "
-                    f"{rec['dense_gflop'] / rec['ms']:.1f} TFLOP/s dense-equivalent, "
-                    f"non-zero 128x32 slabs {rec['nonzero_slabs']:.3f}")
+                    f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); {rate(rec)}")
             records.append(rec)
     return records
 
@@ -355,7 +357,7 @@ def addend_phase(ctx, smi):
             blocks = op.blocks.to(dtype).contiguous()
             x = torch.randn((32, P, C), generator=gen, device="cuda").to(dtype)
             r = torch.randn((32, P, C), generator=gen, device="cuda").to(dtype)
-            y = band_apply(x, blocks, op.pad_left, P, addend=r)
+            y = band_apply(x, blocks, op.pad_left, P, addend=r, pack=op.pack)
             ref = band_apply_plain(x, blocks, op.pad_left, P, r)
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
@@ -372,14 +374,14 @@ def addend_phase(ctx, smi):
             if dtype == torch.float32:
                 A, xv, rv = csr_operator(blocks, op.pad_left, P, P), vertex_major(x), vertex_major(r)
                 rec.update(time_routes({
-                    "ms": lambda: band_apply(x, blocks, op.pad_left, P, addend=r),
+                    "ms": lambda: band_apply(x, blocks, op.pad_left, P, addend=r, pack=op.pack),
                     "plain_ms": lambda: band_apply_plain(x, blocks, op.pad_left, P, r),
                     "library_ms": lambda: torch.sparse.addmm(rv, A, xv),
                 }))
                 rec.update(apply_bound(blocks, 32, P, P, C, dtype, addend=True))
                 log(f"  time [{smi}]: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
                     f"library {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-                    f"({rec['bound_by']})")
+                    f"({rec['bound_by']}); {rate(rec)}")
             records.append(rec)
     return records
 
@@ -485,7 +487,7 @@ def fused_phase(ctx, smi):
                     op_d = dataclasses.replace(op, blocks=blocks)
                     G5 = v5_group(B)
                     with torch.no_grad():
-                        lx = band_apply(x, blocks, op.pad_left, P)
+                        lx = band_apply(x, blocks, op.pad_left, P, pack=op.pack)
                         lx_to = torch.empty_like(lx)
                         t = time_routes({
                             "ms": lambda: fused_cheb2(x, blocks, op.pad_left, P, w0, w1, G5),
@@ -505,10 +507,11 @@ def fused_phase(ctx, smi):
 
 
 def bm_phase(ctx, smi):
-    """The batch-major band-apply kernel (row 3) against its plain version
-    on every banded lap, down, up and down_d op of the flagship context
-    (cb = 128, 256 and 64), B = 16 and 32, C = 64, natural layout, f32 and
-    bf16, with times (routes in turns, `time_routes`). Limits: f32 1e-5 *
+    """The batch-major band apply (row 3, on the band-gather kernel over
+    each op's gather pack) against its plain version on every banded lap,
+    down, up and down_d op of the flagship context (cb = 128, 256 and 64),
+    B = 16 and 32, C = 64, natural layout, f32 and bf16, with times (routes
+    in turns, `time_routes`) and the achieved GB/s. Limits: f32 1e-5 *
     max|ref| + 1e-6, bf16 one ulp of max|ref| (the same f32 sums in another
     order, one rounding). Returns the per-case records."""
     from cape_tpu_torch.ops.banded import BandedOp
@@ -523,11 +526,12 @@ def bm_phase(ctx, smi):
                 continue
             S, T, _, cb = op.blocks.shape
             args = (op.pad_left, op.pad_right, op.n_rows)
+            apply = functools.partial(banded_apply_bm, pack=op.pack)
             for dtype in (torch.float32, torch.bfloat16):
                 blocks = op.blocks.to(dtype).contiguous()
                 for B in (16, 32):
                     x = torch.randn((B, op.n_cols, 64), generator=gen, device="cuda").to(dtype)
-                    err, scale = _err(banded_apply_bm(x, blocks, *args),
+                    err, scale = _err(apply(x, blocks, *args),
                                       banded_apply_bm_plain(x, blocks, *args))
                     limit = 1e-5 * scale + 1e-6 if dtype == torch.float32 else bf16_ulp(scale)
                     rec = dict(op=f"{field}[{idx}]", dtype=str(dtype).replace("torch.", ""), B=B,
@@ -536,7 +540,7 @@ def bm_phase(ctx, smi):
                     if not err <= limit:
                         raise AssertionError(f"banded_apply_bm disagrees with its plain version: {rec}")
                     routes = {
-                        "ms": lambda: banded_apply_bm(x, blocks, *args),
+                        "ms": lambda: apply(x, blocks, *args),
                         "plain_ms": lambda: banded_apply_bm_plain(x, blocks, *args),
                     }
                     if dtype == torch.float32:
@@ -548,7 +552,7 @@ def bm_phase(ctx, smi):
                     log(f"bm {rec['op']} {rec['dtype']} x[{B},{op.n_cols},64] blocks[{S},{T},128,{cb}]: "
                         f"rel err {err / scale:.2e} (limit {limit:.2e}); [{smi}] "
                         f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms{lib}, "
-                        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); {rate(rec)}")
                     records.append(rec)
     return records
 
@@ -1114,7 +1118,7 @@ def main():
     summary = [{
         "name": "band_apply",
         "route": "cuda",
-        "source": KERNEL_SOURCE,
+        "source": GATHER_SOURCE,
         "replaces": REPLACES,
         # the serve and train-mode main paths' forward launches
         "launches": launches + run_fwd,
@@ -1130,7 +1134,7 @@ def main():
     }, {
         "name": "band_apply_bwd",
         "route": "cuda",
-        "source": KERNEL_SOURCE,
+        "source": GATHER_SOURCE,
         "replaces": REPLACES_BWD,
         "launches": run_bwd,
         # worst f32 error of the addend variant over the train step's
@@ -1171,7 +1175,7 @@ def main():
         "ms": sum(r["g1_ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
         **summed_bound(fused_t), "library_ms": None,
     }, {
-        "name": "band_apply_bm", "route": "cuda", "source": BM_SOURCE,
+        "name": "band_apply_bm", "route": "cuda", "source": GATHER_SOURCE,
         "replaces": REPLACES_BM, "launches": lab_counts["band_apply_bm"],
         "max_abs_err": max(r["max_abs_err"] for r in bm_f32),
         "ms": sum(r["ms"] for r in bm_t), "plain_ms": sum(r["plain_ms"] for r in bm_t),
