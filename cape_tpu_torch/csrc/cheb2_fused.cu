@@ -1,76 +1,95 @@
-// Fused K=2 Chebyshev graph convolution for Hopper (sm_90a), batch-major.
+// Fused K=2 Chebyshev graph convolution for Hopper (sm_90a), batch-major,
+// as one streamed GEMM whose A operand is made on the fly from the band's
+// gather pack.
 //
-//   lx[b, r, c] = round_T( sum_k sum_j blocks[k, t, i, j] * x[b, (t+k)*128 + j - pad_left, c] )
-//   y[b, r, f]  = round_T( sum_c x[b, r - pad_left % 128, c] * w0[c, f]
-//                          + sum_c lx[b, r, c] * w1[c, f] )
+//   lx[b, r, :] = round_T( sum_w vals[r, w] * x[b, cols[r, w], :] )
+//   y[b, r, :]  = round_T( x[b, r - pad_left % 128, :] . w0 + lx[b, r, :] . w1 )
 //
-// for output rows r = t*128 + i < rows_out; rows of x outside [0, rows_in)
-// read as zero (masked here, never read out of bounds). round_T rounds an
-// f32 value to the dtype T of x (f32 or bf16); both sums are f32 and are
-// added before the one rounding of y.
+// for output rows r < rows_out; rows of x outside [0, rows_in) read as zero
+// (masked here, never read out of bounds). The pack (cols int32 [>= rows_out,
+// W], -1 for an unused slot; vals f32) is the gather pack of the band blocks
+// at this pad_left (cape_tpu_torch/ops/banded.py, `gather_pack`), so lx is
+// the band apply L~x. round_T rounds an f32 value to the dtype T of x (f32 or
+// bf16); each pack value is rounded to T as the dense blocks of that dtype
+// hold it; both products are summed in one f32 accumulator and y is rounded
+// once.
 //
 // Replaces two TPU kernels of cape_tpu/ops/pallas/cheb_kernel.py that
 // compute the same conv with the intermediate L~x kept out of device memory:
 // `_pallas_cheb2_impl` (kernel 1, body `_make_kernel`: one sample per grid
-// row, L~x in a VMEM scratch accumulated over a sequential shift axis) and
-// `_pallas_cheb2_v5_impl` (kernel 4, body `_make_kernel_v5`: G samples
-// merged into the 128 lanes, with both projections against a
-// block-diagonal kron(I_G, W)). Here a block owns a group of G samples
-// (G = 1 for kernel 1, v5's group for kernel 4), a slab of RS rows of one
-// 128-row tile and all F output columns. The block-diagonal weight is not
-// built: it is a trick to fill the TPU's lanes and would cost G times the
-// projection FLOPs for the same result. On the GPU, merging samples means
-// that the band pieces a block stages and the x window it walks serve G
-// samples at once.
+// row) and `_pallas_cheb2_v5_impl` (kernel 4, body `_make_kernel_v5`: G
+// samples merged into the 128 lanes against a block-diagonal kron(I_G, W)).
+// The block-diagonal weight is not built: it is a trick to fill the TPU's
+// lanes and would cost G times the projection FLOPs.
 //
-// Schedule (256 threads; every thread keeps a 4 x 4 tile of sums in
-// registers, 4 consecutive rows by 4 consecutive columns, read from shared
-// memory as float4):
-//   1. band sum: lx, the RS x (G*C) f32 sum for the block's RS rows, lives
-//      in shared memory (transposed, [G*C][RS], so a thread's 4 rows are
-//      one float4). The block steps over the S shifts in pieces of KC = 32
-//      band columns; it stages each RS x KC band piece once, skips it if it
-//      is all zero (one __syncthreads_or), and otherwise walks the G*C
-//      merged columns NT = 4096 / RS at a time, staging the KC x NT x window
-//      and adding the piece's product into lx. So one staged band piece
-//      serves all G samples. lx is then rounded to T in place: the W1
-//      product takes lx in T, as in the TPU kernels.
-//   2. projections: the G samples' RS rows are one M = G*RS row dimension,
-//      MR rows and 4096 / MR output columns at a time; the block steps over
-//      C in chunks of KC, staging x's centre rows (the padded row block
-//      t + pad_left / 128) and the matching chunks of w0 and w1, with two
-//      register sums (x w0 and lx w1) as in the TPU kernels. A staged weight
-//      chunk thus serves the G samples too.
-//   3. y is written once.
-// RS is 64, 32 or 16: the largest whose lx fits beside the staging buffers
-// in half an SM's shared memory (two blocks per SM), else 16 if it fits the
-// 227 KB a block may have (dynamic shared memory, raised with
-// cudaFuncSetAttribute above 48 KB): G*C <= 1977 (2284 with G >= 4). A
-// smaller RS is taken while the grid would leave fewer than two blocks per
-// SM. The projection tile is MR = 64, 32 or 16 rows (at most G*RS) by
-// 4096 / MR columns, so that every thread has work when the group holds
-// fewer than 64 rows. At the encoder's C = 512 with G = 4, lx takes 160 KB
-// (RS = 16).
+// The conv is one GEMM per block tile: M = BM = 128 rows (G samples x R =
+// 128 / G rows each; G = 1 for kernel 1, v5's group for kernel 4), N = BN
+// output columns, K = 2C, with A = [x_c | round_T(L~x)] and B = [w0; w1].
+// The K loop streams chunks of BK channels (32 in f32, 64 in bf16) through
+// two shared-memory
+// stages (one barrier a chunk):
+//   * the first ceil(C / BK) chunks copy x_c's rows with cp.async (16 bytes a
+//     copy, zero-filled outside x);
+//   * the next ceil(C / BK) chunks make the L~x chunk: each of the tile's
+//     rows gathers the x rows of its pack pairs (16-byte loads along the
+//     channels, four in flight, a pad pair loading 16 zero bytes instead of
+//     branching), sums in f32 and stores the chunk rounded to T. The pairs
+//     are loaded into shared memory once per block, with their x offsets
+//     and a count per row (the walk stops after a row's last pair that reads
+//     x: ~6 of W = 9-11 on the flagship), and serve every chunk and all G
+//     samples;
+//   * the matching [BK, BN] chunk of w0 or w1 comes by cp.async.
+// Chunk k+1's copies are issued before chunk k's product and its gather
+// right after, so they overlap the product of the other resident block.
+// L~x never lives whole in shared memory: the old G*C cap is gone. Where F >
+// BN the gather is repeated per column tile (2W FLOP per A element against
+// 2 BN in the product, ~8% at W = 10 and BN = 128). Sharing it across the
+// column tiles of a thread-block cluster, four stages in bf16, two rows'
+// loads in flight a thread, and producer warps beside consumer warps were
+// each measured slower or no faster on an H100 (PERF.md).
 //
-// What bounds it: the band blocks are dense 128 x 128 tiles of a mesh
-// Laplacian that is about 1% non-zero, so dense arithmetic on them is ~100x
-// the necessary work; the zero-piece skip drops most pieces of a row slab,
-// which lie off the band's diagonal. What remains is the projections,
-// 4 * C * F FLOP per output row and sample, on the CUDA cores (no tensor
-// cores in this version), and the x window, which each of the 128 / RS row
-// slabs of a tile reads again from L2. The gain over the unfused route is
-// that L~x, [B, P, C], is never written to or read from device memory.
+// The product, per dtype:
+//   * f32 on the CUDA cores (TF32 stays off): 256 threads, each with a TM x
+//     TN register tile (8 x 8 at BN = 128), A read as float4 along K for
+//     each of its rows and B as float4 along N: 16 shared loads of 16 bytes
+//     per 256 FMAs.
+//   * bf16 on the tensor cores: mma.sync m16n8k16 (bf16 in, f32 accumulate)
+//     with ldmatrix from padded (conflict-free) rows, 8 warps of up to 64 x
+//     32 outputs each. wgmma and TMA are for a later version.
+// Unaligned widths (C or F not a multiple of the 16-byte vector, e.g. the
+// flagship's C = 3 and F = 1, 3) take one element per access: for x, a second
+// instantiation of the kernel (XV = false) whose threads cover only the
+// chunk's channels of x; for w and y, a branch in the same kernel. A partial
+// last row tile (the natural layout's 6890 rows) is masked.
+//
+// What bounds it: at C or F >= 128 the projections' 4 C F FLOP per output
+// row and sample (f32: 67 TFLOP/s on the CUDA cores); below that the bytes of
+// x and y. The pack, ~10 pairs a row, is what makes the band sum cheap:
+// the dense 128 x 128 band blocks are ~1% non-zero. What holds it back on
+// the card: in f32 the FFMA loop itself, at about half of the peak with the
+// gather and x_c loads taken out; in bf16, where the tensor cores finish a
+// chunk in a few hundred cycles, the latency of the synchronous gather and
+// of each chunk's barrier.
+//
+// The tile choice lives in Python (`fused_plan` in
+// cape_tpu_torch/ops/kernels/cheb_kernel.py); the entry below checks that the
+// plan it is given is the one this source implements.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int RB = 128;          // rows per band block, and its column width
-constexpr int KC = 32;           // band columns / channels per shared-memory step
+constexpr int BM = 128;          // rows of a block tile (G samples x R rows)
+constexpr int STAGES = 2;        // shared-memory stages of the K loop
 constexpr int THREADS = 256;
 constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may have
+
+// What a pad pair loads, so that no load of a gather waits on a branch.
+__device__ __align__(16) unsigned char zero16[16];
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -81,221 +100,506 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-constexpr int PAD = 4;           // keeps float4 rows 16-byte aligned, spreads banks
-constexpr int TILE = 4096;       // sums per 256-thread register tile (16 each)
+// Channels per K chunk, and shared-memory row strides (elements): A
+// [BM][LDA] and B [BK][ldb(BN)]. f32 A rows are padded by 4 floats (16-byte
+// aligned float4 reads along K); bf16 rows by 8 elements, so that
+// ldmatrix's eight 16-byte rows fall on distinct banks. A bf16 chunk is 64
+// channels: the tensor cores finish a chunk so soon that its barrier and
+// copies set the pace; an f32 chunk of 32 keeps two blocks an SM.
+template <typename T> struct Tile;
+template <> struct Tile<float> {
+  static constexpr int VEC = 4, BK = 32, LDA = BK + 4;
+  __host__ __device__ static constexpr int ldb(int bn) { return bn; }
+};
+template <> struct Tile<__nv_bfloat16> {
+  static constexpr int VEC = 8, BK = 64, LDA = BK + 8;
+  __host__ __device__ static constexpr int ldb(int bn) { return bn + 8; }
+};
 
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-// shared-memory floats of a block besides lx, for RS slab rows and MR
-// projection rows: the band piece or x_c, the x window or the w0 chunk, and
-// the w1 chunk
-constexpr int fixed_floats(int RS, int MR) {
-  return KC * (64 + PAD + cmax(TILE / RS, TILE / MR) + TILE / MR);
+template <typename T>
+constexpr int64_t smem_bytes(int BN, int R, int W) {
+  return (int64_t)sizeof(T) * STAGES * (BM * Tile<T>::LDA + Tile<T>::BK * Tile<T>::ldb(BN)) +
+         8LL * R * W + 4LL * R;   // the pairs (x offset, value) and each row's count
 }
 
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a, const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+template <typename T> struct Conv {
+  const T* x;
+  const T* w0;
+  const T* w1;
+  T* y;
+  int rows_in, C, F, W, shift, rows_out, G, R;
+  int rdiv;    // ceil(2^16 / R), so that m / R == (m * rdiv) >> 16 for m, R <= BM
+  bool wvec;   // 16-byte copies of w0, w1 (F % VEC == 0, aligned)
+  bool yvec;   // vector stores of y (f32: 4, bf16: 2 elements)
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T, int RS, int MR>
-__global__ void __launch_bounds__(THREADS)
-cheb2_fused_kernel(const T* __restrict__ x, const T* __restrict__ blocks,
-                   const T* __restrict__ w0, const T* __restrict__ w1, T* __restrict__ y,
-                   int rows_in, int C, int F, int S, int n_tiles, int pad_left, int rows_out,
-                   int G) {
-  constexpr int LD = RS + PAD;           // row stride of lx and of the band piece
-  constexpr int CT = THREADS * 4 / RS;   // threads along the merged columns in phase 1
-  constexpr int NT = 4 * CT;             // merged columns per phase-1 step
-  constexpr int NC = TILE / MR;          // output columns per phase-2 step
-  constexpr int SLABS = RB / RS;
+// 16 bytes of T widened to f32 (a bf16 is the high half of its f32)
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& q, float (&v)[Tile<T>::VEC]) {
+  const unsigned u[4] = {q.x, q.y, q.z, q.w};
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(u[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[2 * e] = __uint_as_float(u[e] << 16);
+      v[2 * e + 1] = __uint_as_float(u[e] & 0xffff0000u);
+    }
+  }
+}
 
+template <typename T>
+__device__ __forceinline__ void store16_rounded(T* p, const float (&v)[Tile<T>::VEC]) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+}
+
+// Tile row m < BM as (its sample in the tile, its row in that sample's R
+// rows). bf16 takes a multiply in place of the integer division by R: it
+// shortens the address math in front of each gather's loads. f32 keeps the
+// division: with the multiply, ptxas spills registers inside the BN = 128
+// FFMA loop, which then runs slower on an H100 (PERF.md).
+template <typename T>
+__device__ __forceinline__ int2 split(const Conv<T>& p, int m) {
+  if constexpr (sizeof(T) == 4) return make_int2(m / p.R, m % p.R);
+  const int s = (m * p.rdiv) >> 16;
+  return make_int2(s, m - s * p.R);
+}
+
+// N consecutive outputs of tile row m from column n, rounded once to T.
+template <typename T, int N>
+__device__ __forceinline__ void put(const Conv<T>& p, int g0, int r0, int f0, int m, int n,
+                                    const float (&v)[N]) {
+  if (m >= p.G * p.R) return;
+  const int2 sr = split(p, m);
+  const int r = r0 + sr.y, f = f0 + n;
+  if (r >= p.rows_out || f >= p.F) return;
+  T* dst = p.y + ((int64_t)(g0 + sr.x) * p.rows_out + r) * p.F + f;
+  if (p.yvec) {   // F % N == 0, so the whole vector is inside
+    if constexpr (sizeof(T) == 4 && N == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      return;
+    } else if constexpr (sizeof(T) == 2 && N == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v[0], v[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    if (f + e < p.F) dst[e] = from_f32<T>(v[e]);
+}
+
+// ---- f32: FFMA with a TM x TN register tile per thread
+template <int BN> struct FmaTile {
+  static constexpr int LDA = Tile<float>::LDA;
+  static constexpr int TN = BN >= 128 ? 8 : 4;
+  static constexpr int TX = BN / TN;              // threads along N
+  static constexpr int TM = BM * TX / THREADS;    // rows per thread
+  static_assert(TM * (THREADS / TX) == BM && (TM == 4 || TM == 8), "tile shape");
+
+  float acc[TM][TN];
+  int ty, tx;
+
+  __device__ __forceinline__ void init(int tid) {
+    ty = tid / TX;
+    tx = tid % TX;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+  // column of the thread's j-th group of 4: two groups BN/2 apart at TN = 8,
+  // so that 8 neighbouring threads read 128 contiguous bytes of B
+  __device__ __forceinline__ int col(int jg) const { return jg * (BN / 2) + tx * 4; }
+
+  __device__ __forceinline__ void chunk(const float* A, const float* B) {
+#pragma unroll
+    for (int k4 = 0; k4 < Tile<float>::BK; k4 += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(A + (ty * TM + i) * LDA + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[TN];
+#pragma unroll
+        for (int jg = 0; jg < TN / 4; ++jg) {
+          const float4 q = *reinterpret_cast<const float4*>(B + (k4 + kk) * BN + col(jg));
+          b[4 * jg] = q.x; b[4 * jg + 1] = q.y; b[4 * jg + 2] = q.z; b[4 * jg + 3] = q.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Conv<float>& p, int g0, int r0, int f0) const {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jg = 0; jg < TN / 4; ++jg) {
+        const float v[4] = {acc[i][4 * jg], acc[i][4 * jg + 1], acc[i][4 * jg + 2],
+                            acc[i][4 * jg + 3]};
+        put<float, 4>(p, g0, r0, f0, ty * TM + i, col(jg), v);
+      }
+  }
+};
+
+// ---- bf16: mma.sync m16n8k16 on the tensor cores, ldmatrix from shared memory
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int BN> struct MmaTile {
+  using T = __nv_bfloat16;
+  static constexpr int LDA = Tile<T>::LDA, LDB = Tile<T>::ldb(BN);
+  static constexpr int WARPS_N = BN >= 64 ? BN / 32 : 1, WARPS_M = THREADS / 32 / WARPS_N;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;   // a warp's outputs
+  static constexpr int MI = WM / 16, NI = WN / 8;             // its m16 and n8 tiles
+  static_assert(MI >= 1 && NI % 2 == 0, "warp tile");
+
+  float acc[MI][NI][4];
+  int wm, wn, lane;
+
+  __device__ __forceinline__ void init(int tid) {
+    lane = tid % 32;
+    wm = tid / 32 / WARPS_N;
+    wn = tid / 32 % WARPS_N;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+
+  __device__ __forceinline__ void chunk(const T* A, const T* B) {
+#pragma unroll
+    for (int ks = 0; ks < Tile<T>::BK; ks += 16) {
+      unsigned a[MI][4], b[NI / 2][4];
+      // A: lanes 0-15 address rows 0-15 at k, lanes 16-31 the same rows at k + 8
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldsm_x4(a[i], A + (wm * WM + i * 16 + lane % 16) * LDA + ks + (lane / 16) * 8);
+      // B, stored [k][n]: transposed 8 x 8 loads give two n8 tiles' k16 fragments
+#pragma unroll
+      for (int j = 0; j < NI / 2; ++j)
+        ldsm_x4_trans(b[j], B + (ks + lane % 16) * LDB + wn * WN + j * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          mma_bf16(acc[i][j], a[i], b[j / 2][(j % 2) * 2], b[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+
+  __device__ __forceinline__ void store(const Conv<T>& p, int g0, int r0, int f0) const {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int m = wm * WM + i * 16 + lane / 4, n = wn * WN + j * 8 + 2 * (lane % 4);
+        const float lo[2] = {acc[i][j][0], acc[i][j][1]}, hi[2] = {acc[i][j][2], acc[i][j][3]};
+        put<T, 2>(p, g0, r0, f0, m, n, lo);
+        put<T, 2>(p, g0, r0, f0, m + 8, n, hi);
+      }
+  }
+};
+
+template <typename T, int BN>
+using Product = std::conditional_t<sizeof(T) == 4, FmaTile<BN>, MmaTile<BN>>;
+
+// XV: 16-byte accesses of x (C % VEC == 0, x aligned), else one element an
+// access; a template flag, so that the scalar path's code does not share a
+// register allocation with the vector path's
+template <typename T, int BN, bool XV>
+__global__ void __launch_bounds__(THREADS, 2)
+cheb2_fused_kernel(const Conv<T> p, const int* __restrict__ cols,
+                   const float* __restrict__ vals, int n_col_tiles) {
+  constexpr int VEC = Tile<T>::VEC, BK = Tile<T>::BK, LDA = Tile<T>::LDA, LDB = Tile<T>::ldb(BN);
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int GC = G * C;
-  float* lx = smem;                              // [GC][LD]: lx[m][r]
-  float* As = lx + GC * LD;                      // band piece [KC][LD] | x_c [KC][MR + PAD]
-  float* Xs = As + KC * (64 + PAD);              // x window [KC][NT] | w0 chunk [KC][NC]
-  float* Ws = Xs + KC * cmax(NT, NC);            // w1 chunk [KC][NC]
+  T* As = reinterpret_cast<T*>(smem4);                       // [STAGES][BM][LDA]
+  T* Bs = As + STAGES * BM * LDA;                            // [STAGES][BK][LDB]
+  int* offs = reinterpret_cast<int*>(Bs + STAGES * BK * LDB);  // [R][W] x offsets
+  float* pv = reinterpret_cast<float*>(offs + p.R * p.W);    // [R][W] values
+  int* cnt = reinterpret_cast<int*>(pv + p.R * p.W);         // [R] pairs to walk
 
-  const int t = blockIdx.x / SLABS;
-  const int r0 = (blockIdx.x % SLABS) * RS;      // first row of the slab in the tile
-  const int g0 = blockIdx.y * G;                 // first sample of the group
   const int tid = threadIdx.x;
+  const int f0 = (blockIdx.x % n_col_tiles) * BN;   // column tiles fastest: they share x
+  const int r0 = (blockIdx.x / n_col_tiles) * p.R;
+  const int g0 = blockIdx.y * p.G;
+  const int M = p.G * p.R;                          // tile rows in use
+  const int nC = (p.C + BK - 1) / BK;               // chunks of each half of K
 
-  // ---- 1. the band sum lx for the slab's rows and all G*C merged columns
-  for (int l = tid; l < GC * LD; l += THREADS) lx[l] = 0.f;
-  {
-    const int tx = tid % CT, ty = tid / CT;      // columns 4tx.., rows 4ty..
-    for (int k = 0; k < S; ++k) {
-      const T* blk = blocks + (((int64_t)k * n_tiles + t) * RB + r0) * RB;
-      const int row0 = (t + k) * RB - pad_left;  // x row of band column 0
-      for (int j0 = 0; j0 < RB; j0 += KC) {
-        bool nz = false;
-        for (int l = tid; l < RS * KC; l += THREADS) {
-          const int r = l / KC, jj = l % KC;
-          const float v = to_f32(blk[r * RB + j0 + jj]);
-          As[jj * LD + r] = v;
-          nz |= (v != 0.f);
-        }
-        // barrier for As (and for the zeroed lx); a piece with no band
-        // entry contributes nothing
-        if (!__syncthreads_or(nz)) continue;
-        for (int m0 = 0; m0 < GC; m0 += NT) {
-          for (int l = tid; l < KC * NT; l += THREADS) {
-            const int jj = l / NT, n = l % NT;
-            const int m = m0 + n;
-            const int r = row0 + j0 + jj;
-            float v = 0.f;
-            if (m < GC && r >= 0 && r < rows_in)
-              v = to_f32(x[((int64_t)(g0 + m / C) * rows_in + r) * C + m % C]);
-            Xs[jj * NT + n] = v;
-          }
-          __syncthreads();
-          float acc[4][4] = {};
-#pragma unroll 8
-          for (int jj = 0; jj < KC; ++jj)
-            fma4x4(acc, *reinterpret_cast<const float4*>(As + jj * LD + 4 * ty),
-                   *reinterpret_cast<const float4*>(Xs + jj * NT + 4 * tx));
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int m = m0 + 4 * tx + c;
-            if (m >= GC) continue;
-            float4* dst = reinterpret_cast<float4*>(lx + m * LD + 4 * ty);
-            float4 v = *dst;
-            v.x += acc[0][c]; v.y += acc[1][c]; v.z += acc[2][c]; v.w += acc[3][c];
-            *dst = v;
-          }
-          __syncthreads();
-        }
-      }
-    }
-  }
+  // the tile's pack pairs, once: the x offset (-1 where the pair reads the
+  // zero pad or past the end of x) and the value rounded to T; per row, the
+  // pairs up to its last one that reads x, which the gather walks (a row's
+  // pairs are in ascending column order, unused slots last: ~6 of W = 9-11
+  // on the flagship's Laplacians)
+  for (int rr = tid; rr < p.R; rr += THREADS) cnt[rr] = 0;
   __syncthreads();
-  // round to x's dtype: the W1 product takes lx in T, as in the TPU kernels
-  if (sizeof(T) < sizeof(float)) {
-    for (int l = tid; l < GC * LD; l += THREADS) lx[l] = to_f32(from_f32<T>(lx[l]));
-    __syncthreads();
+  for (int l = tid; l < p.R * p.W; l += THREADS) {
+    const int rr = l / p.W, r = r0 + rr;
+    int c = -1;
+    float v = 0.f;
+    if (r < p.rows_out) {
+      const int64_t at = (int64_t)r * p.W + l % p.W;
+      c = cols[at];
+      v = to_f32(from_f32<T>(vals[at]));
+    }
+    const bool in = c >= 0 && c < p.rows_in;
+    offs[l] = in ? c * p.C : -1;
+    pv[l] = v;
+    if (in) atomicMax(cnt + rr, l % p.W + 1);
   }
 
-  // ---- 2. y = x_c w0 + lx w1 over the M = G*RS rows (sample-major), MR x NC at a time
-  const int tx = tid % (NC / 4), ty = tid / (NC / 4);   // columns 4tx.., rows 4ty..
-  const int M = G * RS;
-  const int xrow0 = t * RB + r0 - pad_left % RB;  // x row under the slab's first row
-  for (int mc = 0; mc < M; mc += MR) {
-    const int mt = mc + 4 * ty;                   // this thread's first row of M
-    const bool valid = mt < M;
-    const int tg = mt / RS, tr = mt % RS;         // its sample and slab row (4 rows, one sample)
-    for (int f0 = 0; f0 < F; f0 += NC) {
-      float acc0[4][4] = {}, acc1[4][4] = {};
-      for (int c0 = 0; c0 < C; c0 += KC) {
-        const int kw = min(KC, C - c0);
-        for (int l = tid; l < KC * MR; l += THREADS) {
-          const int m = l / KC, jj = l % KC;
-          const int g = (mc + m) / RS, xr = xrow0 + (mc + m) % RS;
-          float v = 0.f;
-          if (mc + m < M && jj < kw && xr >= 0 && xr < rows_in)
-            v = to_f32(x[((int64_t)(g0 + g) * rows_in + xr) * C + c0 + jj]);
-          As[jj * (MR + PAD) + m] = v;
-        }
-        for (int l = tid; l < KC * NC; l += THREADS) {
-          const int jj = l / NC, n = l % NC;
-          const bool in = jj < kw && f0 + n < F;
-          const int64_t at = (int64_t)(c0 + jj) * F + f0 + n;
-          Xs[l] = in ? to_f32(w0[at]) : 0.f;
-          Ws[l] = in ? to_f32(w1[at]) : 0.f;
-        }
-        __syncthreads();
-        const float* lxg = lx + (tg * C + c0) * LD + tr;
-        for (int jj = 0; jj < kw; ++jj) {
-          const float4 b0 = *reinterpret_cast<const float4*>(Xs + jj * NC + 4 * tx);
-          const float4 b1 = *reinterpret_cast<const float4*>(Ws + jj * NC + 4 * tx);
-          fma4x4(acc0, *reinterpret_cast<const float4*>(As + jj * (MR + PAD) + 4 * ty), b0);
-          const float4 a1 = valid ? *reinterpret_cast<const float4*>(lxg + jj * LD)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-          fma4x4(acc1, a1, b1);
-        }
-        __syncthreads();
+  // chunk kc of B: rows c0.. of w0 (kc < nC) or w1, columns f0.. ; zero outside
+  auto load_w = [&](int kc, T* dst) {
+    const T* src = kc < nC ? p.w0 : p.w1;
+    const int c0 = (kc < nC ? kc : kc - nC) * BK;
+    if (p.wvec) {
+      for (int l = tid; l < BK * BN / VEC; l += THREADS) {
+        const int k = l / (BN / VEC), n = (l % (BN / VEC)) * VEC;
+        const bool in = c0 + k < p.C && f0 + n < p.F;
+        cp_async16(dst + k * LDB + n, in ? src + (int64_t)(c0 + k) * p.F + f0 + n : src, in);
       }
-      // ---- 3. one write of y
-      if (!valid) continue;
-      T* yg = y + (int64_t)(g0 + tg) * rows_out * F;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = t * RB + r0 + tr + r;
-        if (row >= rows_out) continue;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int f = f0 + 4 * tx + c;
-          if (f < F) yg[(int64_t)row * F + f] = from_f32<T>(acc0[r][c] + acc1[r][c]);
-        }
+    } else {
+      for (int l = tid; l < BK * BN; l += THREADS) {
+        const int k = l / BN, n = l % BN;
+        const bool in = c0 + k < p.C && f0 + n < p.F;
+        dst[k * LDB + n] = in ? src[(int64_t)(c0 + k) * p.F + f0 + n] : from_f32<T>(0.f);
       }
     }
+  };
+  // chunk kc < nC of A: x_c, x row r - shift under output row r; zero outside x
+  auto load_xc = [&](int kc, T* dst) {
+    const int c0 = kc * BK;
+    constexpr int NV = BK / VEC;
+    if constexpr (XV) {
+      for (int l = tid; l < BM * NV; l += THREADS) {
+        const int m = l / NV, k = (l % NV) * VEC;
+        const int2 sr = split(p, m);
+        const int xr = r0 + sr.y - p.shift;
+        const bool in = m < M && xr >= 0 && xr < p.rows_in && c0 + k < p.C;
+        cp_async16(dst + m * LDA + k,
+                   in ? p.x + ((int64_t)(g0 + sr.x) * p.rows_in + xr) * p.C + c0 + k : p.x, in);
+      }
+    } else {   // one element a thread over the chunk's kw channels of x, as in gather
+      const int kw = min(BK, p.C - c0);
+#pragma unroll 4
+      for (int l = tid; l < BM * kw; l += THREADS) {
+        const int m = l / kw, k = l % kw;
+        const int2 sr = split(p, m);
+        const int xr = r0 + sr.y - p.shift;
+        const bool in = m < M && xr >= 0 && xr < p.rows_in;
+        dst[m * LDA + k] =
+            in ? p.x[((int64_t)(g0 + sr.x) * p.rows_in + xr) * p.C + c0 + k] : from_f32<T>(0.f);
+      }
+      for (int l = tid; l < BM * (BK - kw); l += THREADS)
+        dst[l / (BK - kw) * LDA + kw + l % (BK - kw)] = from_f32<T>(0.f);
+    }
+  };
+  // chunk kc >= nC of A: round_T(L~x) over channels c0.., gathered from the pairs
+  auto gather = [&](int kc, T* dst) {
+    const int c0 = (kc - nC) * BK;
+    if constexpr (XV) {
+      constexpr int NV = BK / VEC;
+      for (int l = tid; l < BM * NV; l += THREADS) {
+        const int m = l / NV, k = (l % NV) * VEC;
+        float acc[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+        if (m < M && c0 + k < p.C) {
+          const int2 sr = split(p, m);
+          const T* xb = p.x + (int64_t)(g0 + sr.x) * p.rows_in * p.C + c0 + k;
+          const int* o = offs + sr.y * p.W;
+          const float* v = pv + sr.y * p.W;
+          const int n = cnt[sr.y];
+          for (int w0 = 0; w0 < n; w0 += 4) {   // four loads in flight
+            uint4 q[4];
+            float a[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int w = w0 + u;
+              const int ow = w < n ? o[w] : -1;
+              a[u] = w < n ? v[w] : 0.f;
+              q[u] = *reinterpret_cast<const uint4*>(
+                  ow >= 0 ? static_cast<const void*>(xb + ow) : static_cast<const void*>(zero16));
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              float xv[VEC];
+              unpack<T>(q[u], xv);
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) acc[e] = fmaf(a[u], xv[e], acc[e]);
+            }
+          }
+        }
+        store16_rounded<T>(dst + m * LDA + k, acc);
+      }
+    } else {
+      // one element a thread over the kw channels of x in this chunk, so
+      // that every thread gathers where C < BK (the flagship's C = 3); the
+      // chunk's other channels are zero
+      const int kw = min(BK, p.C - c0);
+      for (int l = tid; l < BM * kw; l += THREADS) {
+        const int m = l / kw, k = l % kw;
+        float acc = 0.f;
+        if (m < M) {
+          const int2 sr = split(p, m);
+          const T* xb = p.x + (int64_t)(g0 + sr.x) * p.rows_in * p.C + c0 + k;
+          const int* o = offs + sr.y * p.W;
+          const float* v = pv + sr.y * p.W;
+          const int n = cnt[sr.y];
+#pragma unroll 4
+          for (int w = 0; w < n; ++w) {
+            const int ow = o[w];
+            acc = fmaf(v[w], ow >= 0 ? to_f32(xb[ow]) : 0.f, acc);
+          }
+        }
+        dst[m * LDA + k] = from_f32<T>(acc);
+      }
+      for (int l = tid; l < BM * (BK - kw); l += THREADS)
+        dst[l / (BK - kw) * LDA + kw + l % (BK - kw)] = from_f32<T>(0.f);
+    }
+  };
+
+  Product<T, BN> prod;
+  prod.init(tid);
+  const int nK = 2 * nC;
+  load_xc(0, As);
+  load_w(0, Bs);
+  cp_async_commit();
+  for (int kc = 0; kc < nK; ++kc) {
+    cp_async_wait_all();
+    __syncthreads();   // chunk kc is in its stage; the other stage is free
+    const int nx = kc + 1;
+    T* An = As + (nx % STAGES) * BM * LDA;
+    if (nx < nK) {
+      load_w(nx, Bs + (nx % STAGES) * BK * LDB);
+      if (nx < nC) load_xc(nx, An);
+    }
+    cp_async_commit();
+    prod.chunk(As + (kc % STAGES) * BM * LDA, Bs + (kc % STAGES) * BK * LDB);
+    if (nx < nK && nx >= nC) gather(nx, An);
   }
+  prod.store(p, g0, r0, f0);
 }
 
-template <typename T, int RS, int MR>
-int launch(const void* x, const void* blocks, const void* w0, const void* w1, void* y, int B,
-           int rows_in, int C, int F, int S, int n_tiles, int pad_left, int rows_out, int G,
-           cudaStream_t s) {
-  const int smem = 4 * (G * C * (RS + PAD) + fixed_floats(RS, MR));
-  auto kernel = cheb2_fused_kernel<T, RS, MR>;
+template <typename T, int BN>
+int launch(const Conv<T>& p, bool xvec, const int* cols, const float* vals, int grid_x,
+           int grid_y, int smem, cudaStream_t s) {
+  auto kernel = xvec ? cheb2_fused_kernel<T, BN, true> : cheb2_fused_kernel<T, BN, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_tiles * (RB / RS), B / G);
-  kernel<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(blocks), static_cast<const T*>(w0),
-      static_cast<const T*>(w1), static_cast<T*>(y), rows_in, C, F, S, n_tiles, pad_left,
-      rows_out, G);
+  kernel<<<dim3(grid_x, grid_y), THREADS, smem, s>>>(p, cols, vals, (p.F + BN - 1) / BN);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* x, const void* blocks, const void* w0, const void* w1, void* y, int B,
-             int rows_in, int C, int F, int S, int n_tiles, int pad_left, int rows_out, int G,
-             cudaStream_t s) {
-  const int64_t GC = (int64_t)G * C;
-  // projection rows: the group's slab rows, at most 64 (a last, partial row
-  // tile is masked)
-  auto rows = [&](int RS) { return G * RS >= 64 ? 64 : G * RS >= 32 ? 32 : 16; };
-  auto bytes = [&](int RS) { return 4 * (GC * (RS + PAD) + fixed_floats(RS, rows(RS))); };
-  constexpr int64_t HALF_SM = SMEM_MAX / 2 - 1024;   // two blocks per SM
-  int RS = bytes(64) <= HALF_SM ? 64 : bytes(32) <= HALF_SM ? 32 : 16;
-  if (bytes(RS) > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  // smaller slabs while the grid leaves fewer than two blocks per SM (132 SMs on an H100)
-  while (RS > 16 && (int64_t)n_tiles * (RB / RS) * (B / G) < 2 * 132) RS /= 2;
-  const int MR = rows(RS);
-#define CAPE_FUSED(RS_, MR_)                                                                  \
-  if (RS == RS_ && MR == MR_)                                                                 \
-    return launch<T, RS_, MR_>(x, blocks, w0, w1, y, B, rows_in, C, F, S, n_tiles, pad_left, \
-                               rows_out, G, s);
-  CAPE_FUSED(64, 64) CAPE_FUSED(32, 64) CAPE_FUSED(32, 32)
-  CAPE_FUSED(16, 64) CAPE_FUSED(16, 32) CAPE_FUSED(16, 16)
-#undef CAPE_FUSED
+int dispatch(Conv<T> p, const int* cols, const float* vals, int B, int BN, int grid_x,
+             int grid_y, int smem, cudaStream_t s) {
+  // the plan must be the one this source implements (fused_plan in Python)
+  const int64_t want_x = (int64_t)((p.F + BN - 1) / BN) * ((p.rows_out + p.R - 1) / p.R);
+  if (p.R < 1 || p.G * p.R > BM || want_x != grid_x || grid_y != B / p.G ||
+      smem != smem_bytes<T>(BN, p.R, p.W) || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  constexpr int VEC = Tile<T>::VEC;
+  const uintptr_t w = (uintptr_t)p.w0 | (uintptr_t)p.w1;
+  const bool xvec = p.C % VEC == 0 && (uintptr_t)p.x % 16 == 0;
+  p.wvec = p.F % VEC == 0 && w % 16 == 0;
+  p.yvec = sizeof(T) == 4 ? p.F % 4 == 0 && (uintptr_t)p.y % 16 == 0
+                          : p.F % 2 == 0 && (uintptr_t)p.y % 4 == 0;
+  if constexpr (sizeof(T) == 4) {
+    if (BN == 128) return launch<T, 128>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
+    if (BN == 64) return launch<T, 64>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
+    if (BN == 32) return launch<T, 32>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
+  } else {
+    if (BN == 128) return launch<T, 128>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
+    if (BN == 64) return launch<T, 64>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
+    if (BN == 32) return launch<T, 32>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
+    if (BN == 16) return launch<T, 16>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int run(const void* x, const void* cols, const void* vals, const void* w0, const void* w1,
+        void* y, int B, int rows_in, int C, int F, int W, int pad_left, int rows_out, int G, int BN,
+        int R, int grid_x, int grid_y, int smem, cudaStream_t s) {
+  Conv<T> p{static_cast<const T*>(x), static_cast<const T*>(w0), static_cast<const T*>(w1),
+            static_cast<T*>(y), rows_in, C, F, W, pad_left % BM, rows_out, G, R,
+            R > 0 ? (65536 + R - 1) / R : 0, false, false};
+  return dispatch<T>(p, static_cast<const int*>(cols), static_cast<const float*>(vals), B, BN,
+                     grid_x, grid_y, smem, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x [B, rows_in, C], blocks [S, n_tiles,
-// 128, 128], w0 and w1 [C, F] and y [B, rows_out, F] are contiguous, in that
-// dtype, on the device of `stream`; G divides B, and G*C <= 1977 (2284 with
-// G >= 4). Returns the launch's cudaError_t (0 = launched).
-extern "C" int cape_cheb2_fused(const void* x, const void* blocks, const void* w0,
-                                const void* w1, void* y, int dtype, int B, int rows_in, int C,
-                                int F, int S, int n_tiles, int pad_left, int rows_out, int G,
-                                void* stream) {
-  if (B <= 0 || C <= 0 || F <= 0 || S <= 0 || n_tiles <= 0 || rows_in < 0 || pad_left < 0 ||
-      rows_out <= 0 || rows_out > n_tiles * RB || G <= 0 || B % G != 0 || B / G > 65535)
+// dtype: 0 = float32, 1 = bfloat16. x [B, rows_in, C], w0 and w1 [C, F] and
+// y [B, rows_out, F] are contiguous, in that dtype; cols (int32) and vals
+// (float32) are the gather pack's [>= rows_out, W] arrays, contiguous; all on
+// the device of `stream`. G divides B. The plan (block tile BM x BN, K chunk
+// BK, stages, R rows per sample of a tile, shared-memory bytes, grid) is
+// `fused_plan`'s; it is refused unless it is the one this source implements.
+// Returns the launch's cudaError_t (0 = launched).
+extern "C" int cape_cheb2_fused(const void* x, const void* cols, const void* vals,
+                                const void* w0, const void* w1, void* y, int dtype, int B,
+                                int rows_in, int C, int F, int W, int pad_left, int rows_out,
+                                int G, int bm, int BN, int bk, int stages, int R, int smem,
+                                int grid_x, int grid_y, void* stream) {
+  const int want_bk = dtype == 0 ? Tile<float>::BK : Tile<__nv_bfloat16>::BK;
+  if (B <= 0 || C <= 0 || F <= 0 || W <= 0 || rows_in < 0 || pad_left < 0 || rows_out <= 0 ||
+      G <= 0 || B % G != 0 || B / G > 65535 || (int64_t)rows_in * C > INT32_MAX || bm != BM ||
+      bk != want_bk || stages != STAGES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(x, blocks, w0, w1, y, B, rows_in, C, F, S, n_tiles, pad_left, rows_out, G, s);
+    return run<float>(x, cols, vals, w0, w1, y, B, rows_in, C, F, W, pad_left, rows_out, G, BN,
+                      R, grid_x, grid_y, smem, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, blocks, w0, w1, y, B, rows_in, C, F, S, n_tiles, pad_left, rows_out, G, s);
+    return run<__nv_bfloat16>(x, cols, vals, w0, w1, y, B, rows_in, C, F, W, pad_left, rows_out,
+                              G, BN, R, grid_x, grid_y, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,9 +9,10 @@ query to psbody's C++ AABB tree).
 Copy of `cape_tpu.meshops.transfer` with its numpy backend only: exact
 point-triangle distance over KD-tree candidate faces (scipy cKDTree on face
 centroids). The JAX package prefers its C++ BVH (`native/`) where that is
-built, which can pick another triangle for a point equidistant from two;
-the port builds upsample matrices only off the canonical plan, whose
-pyramid is loaded from the shipped matrices.
+built, which can pick another triangle for a point equidistant from two
+(the tie rule is in `_nearest_numpy`); the port builds upsample matrices
+only off the canonical plan, whose pyramid is loaded from the shipped
+matrices.
 """
 
 from __future__ import annotations
@@ -93,7 +94,14 @@ def closest_point_on_triangles(p: np.ndarray, tri: np.ndarray):
 
 
 def _nearest_numpy(points, verts, faces, k_candidates=64):
-    """KD-tree-candidate exact nearest triangle."""
+    """KD-tree-candidate exact nearest triangle.
+
+    Ties: of triangles equally near a point, the first candidate in KD-tree
+    order (by centroid distance) wins (`np.argmin`). The JAX package's C++
+    BVH keeps the first face it reaches in its traversal (a strict `<`,
+    `native/aabb.cpp`), so at a tie it may pick the other triangle. The two
+    closest points then lie equally far from the point but need not
+    coincide, so the interpolated vertex can differ."""
     from scipy.spatial import cKDTree
 
     centroids = verts[faces].mean(axis=1)

@@ -82,8 +82,9 @@ def band_gather_lib() -> ctypes.CDLL:
 @functools.cache
 def cheb2_fused_lib() -> ctypes.CDLL:
     """The fused K=2 conv kernel's library (kernels 1 and 4), built on first use."""
-    # x, blocks, w0, w1, y; dtype, B, rows_in, C, F, S, T, pad_left, rows_out, group
-    return _load("cheb2_fused", "cape_cheb2_fused", n_ints=10, n_ptrs=5)
+    # x, pack cols, pack vals, w0, w1, y; dtype, B, rows_in, C, F, W, pad_left,
+    # rows_out, group, then the plan: BM, BN, BK, stages, rows, smem, grid x, grid y
+    return _load("cheb2_fused", "cape_cheb2_fused", n_ints=17, n_ptrs=6)
 
 
 @functools.cache

@@ -19,10 +19,12 @@ Counterparts of the entries of `cape_tpu/ops/pallas/cheb_kernel.py`:
   * `cheb2_banded` (`cheb2_banded_pallas`, TPU kernel `_pallas_cheb2_impl`)
     and `cheb2_banded_v5` (`cheb2_banded_pallas_v5`, TPU kernel
     `_pallas_cheb2_v5_impl`): the fused conv, in which L~x never reaches
-    device memory, in the CUDA kernel `csrc/cheb2_fused.cu` (`fused_cheb2`)
-    with G samples per block (1 for the first, v5's group for the second),
-    and the plain backward of JAX's `_bwd` (the JAX package has no backward
-    kernel for them).
+    device memory, in the CUDA kernel `csrc/cheb2_fused.cu` (`fused_cheb2`):
+    one streamed GEMM per block tile whose L~x operand is gathered from the
+    op's gather pack chunk by chunk, with G samples per tile (1 for the
+    first, v5's group for the second), tiled by `fused_plan`; and the plain
+    backward of JAX's `_bwd` (the JAX package has no backward kernel for
+    them).
   * `cheb2_banded_v6` and `cheb2_banded_v7` (`cheb2_banded_pallas_v6` / `_v7`,
     TPU kernels `_pallas_cheb2_v6_impl` and `_pallas_cheb2_v7_impl`): the same
     fused conv in the CUDA kernel `csrc/cheb2_ring.cu` (`ring_cheb2`), which
@@ -31,8 +33,8 @@ Counterparts of the entries of `cape_tpu/ops/pallas/cheb_kernel.py`:
   * `banded_apply_bm` (TPU kernel `banded_apply_bm`): y = M x for a banded M
     with any column block, batch-major, in the same band-gather kernel.
 
-The band-apply wrappers take the gather pack of their blocks (`pack=`):
-a CUDA launch needs it, and the wrappers never build one.
+The band-apply wrappers and the fused conv take the gather pack of their
+blocks (`pack=`): a CUDA launch needs it, and the wrappers never build one.
 """
 
 from __future__ import annotations
@@ -69,8 +71,7 @@ def _flat(a: torch.Tensor) -> torch.Tensor:
 
 
 def _stream(x: torch.Tensor) -> int:
-    with torch.cuda.device(x.device):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _check_cuda(name: str, x: torch.Tensor, **others: torch.Tensor | None) -> None:
@@ -96,9 +97,11 @@ def _check_tensors(name: str, x: torch.Tensor, **others: torch.Tensor | None) ->
 
 
 def _raise_on(name: str, lib, err: int, shapes) -> None:
+    """Raise on a failed launch; `shapes()` describes it (formatted only then,
+    off the launch's host path)."""
     if err != 0:
         raise RuntimeError(
-            f"{name} launch failed: {lib.cape_cuda_error_string(err).decode()} ({shapes})"
+            f"{name} launch failed: {lib.cape_cuda_error_string(err).decode()} ({shapes()})"
         )
 
 
@@ -164,7 +167,8 @@ def _gather(name: str, x: torch.Tensor, pack: GatherPack, rows_out: int,
         None if addend is None else addend.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
         B, rows_in, C, pack.width, rows_out, _stream(x),
     )
-    _raise_on(name, lib, err, f"x {tuple(x.shape)}, pack width {pack.width}, rows_out={rows_out}")
+    _raise_on(name, lib, err,
+              lambda: f"x {tuple(x.shape)}, pack width {pack.width}, rows_out={rows_out}")
     return y
 
 
@@ -296,42 +300,91 @@ def fused_cheb2_plain(x, blocks, pad_left: int, rows_out: int, w0, w1) -> torch.
     return (y + torch.matmul(lx.to(acc), w1.to(x.dtype).to(acc))).to(x.dtype)
 
 
+# the tiling of csrc/cheb2_fused.cu: a block tile of FUSED_BM rows, K chunks
+# of FUSED_BK channels (per dtype) through FUSED_STAGES shared-memory stages
+FUSED_BM, FUSED_STAGES = 128, 2
+FUSED_BK = {torch.float32: 32, torch.bfloat16: 64}
+SMEM_MAX = 232448   # bytes of shared memory an H100 block may have
+
+
+@functools.cache
+def fused_plan(dtype: torch.dtype, B: int, rows_out: int, C: int, F: int, G: int,
+               width: int) -> dict | None:
+    """How `csrc/cheb2_fused.cu` tiles a fused conv of these sizes, for a
+    gather pack `width` pairs wide; None if it takes no such conv.
+
+    A block computes a tile of BM output rows, G samples by `rows` = BM // G
+    rows each, and BN output columns; the K loop streams 2C channels in
+    chunks of BK through `stages` shared-memory stages. Block x = row tile *
+    ceil(F / BN) + column tile, block y = sample group. `smem` is the
+    block's dynamic shared memory in bytes: the A and B stages (f32 A rows
+    padded to BK + 4, bf16 A and B rows padded by 8 elements), the tile's
+    pack pairs (8 bytes each) and a count per row. BN is the least of 128,
+    64, 32 (and 16 in bf16) that is not narrower than F allows."""
+    if G < 1 or B % G or G > FUSED_BM or B // G > 65535 or dtype not in FUSED_BK:
+        return None
+    BK = FUSED_BK[dtype]
+    rows = FUSED_BM // G
+    if dtype == torch.float32:
+        BN = 128 if F > 64 else 64 if F > 32 else 32
+        tiles = 4 * FUSED_STAGES * (FUSED_BM * (BK + 4) + BK * BN)
+    else:
+        BN = 128 if F > 64 else 64 if F > 32 else 32 if F > 16 else 16
+        tiles = 2 * FUSED_STAGES * (FUSED_BM * (BK + 8) + BK * (BN + 8))
+    smem = tiles + 8 * rows * width + 4 * rows
+    if smem > SMEM_MAX:
+        return None
+    return dict(BM=FUSED_BM, BN=BN, BK=BK, stages=FUSED_STAGES, rows=rows, smem=smem,
+                grid=(-(-F // BN) * -(-rows_out // rows), B // G, 1))
+
+
 def fused_cheb2(
     x: torch.Tensor, blocks: torch.Tensor, pad_left: int, rows_out: int,
-    w0: torch.Tensor, w1: torch.Tensor, group: int,
+    w0: torch.Tensor, w1: torch.Tensor, group: int, pack: GatherPack | None = None,
 ) -> torch.Tensor:
     """y = x_c @ w0 + round(L~ x) @ w1 -> [B, rows_out, F] in one kernel, for
     x [B, rows_in, C], blocks [S, T, 128, 128] and w0, w1 [C, F], all of x's
-    dtype, with `group` samples per block (B % group == 0; the kernel
-    holds group * C <= 1977 channels of L~x in shared memory, 2284 for a
-    group of 4 or more). CUDA tensors launch `csrc/cheb2_fused.cu`; CPU
-    and meta tensors take fused_cheb2_plain. A launch counts in `fused1_launches` for a group of
-    1 (kernel 1's case), else in `fused_launches` (kernel 4's)."""
+    dtype, with `group` samples per block tile (B % group == 0). CUDA
+    tensors launch `csrc/cheb2_fused.cu` over `pack`, the gather pack of the
+    blocks (required there), tiled by `fused_plan`; CPU and meta tensors
+    take fused_cheb2_plain. A pack given is checked against the blocks on
+    every device. A launch counts in `fused1_launches` for a group of 1
+    (kernel 1's case), else in `fused_launches` (kernel 4's)."""
     global fused_launches, fused1_launches
     B, rows_in, C = x.shape
     if group < 1 or B % group:
         raise ValueError(f"fused_cheb2: batch {B} is not a multiple of group {group}")
+    if pack is not None or x.device.type not in ("cpu", "meta"):
+        _check_pack("fused_cheb2", pack, blocks, pad_left)
     if x.device.type in ("cpu", "meta"):
         return fused_cheb2_plain(x, blocks, pad_left, rows_out, w0, w1)
     _check_cuda("fused_cheb2", x, blocks=blocks, w0=w0, w1=w1)
     if blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
         raise ValueError(f"fused_cheb2: blocks {tuple(blocks.shape)} must be [S, T, {RB}, {RB}]")
-    S, T = blocks.shape[:2]
+    T = blocks.shape[1]
     Fo = w0.shape[-1]
     if tuple(w0.shape) != (C, Fo) or tuple(w1.shape) != (C, Fo):
         raise ValueError(f"fused_cheb2: w0 {tuple(w0.shape)}, w1 {tuple(w1.shape)} for C={C}")
     if not 0 < rows_out <= T * RB or pad_left < 0:
         raise ValueError(f"fused_cheb2: rows_out={rows_out}, pad_left={pad_left}, T={T}")
+    if pack.cols.device != x.device or pack.vals.device != x.device:
+        raise TypeError(f"fused_cheb2: the gather pack is on {pack.cols.device}, x on {x.device}")
+    plan = fused_plan(x.dtype, B, rows_out, C, Fo, group, pack.width)
+    if plan is None:
+        raise ValueError(f"fused_cheb2: no tile of csrc/cheb2_fused.cu takes group={group} at "
+                         f"B={B}, pack width {pack.width}")
     from cape_tpu_torch.ops.kernels.build import cheb2_fused_lib
 
     lib = cheb2_fused_lib()
     y = torch.empty((B, rows_out, Fo), dtype=x.dtype, device=x.device)
     err = lib.cape_cheb2_fused(
-        x.data_ptr(), blocks.data_ptr(), w0.data_ptr(), w1.data_ptr(), y.data_ptr(),
-        _DTYPE_CODES[x.dtype], B, rows_in, C, Fo, S, T, pad_left, rows_out, group, _stream(x),
+        x.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+        y.data_ptr(), _DTYPE_CODES[x.dtype], B, rows_in, C, Fo, pack.width, pad_left, rows_out,
+        group, plan["BM"], plan["BN"], plan["BK"], plan["stages"], plan["rows"], plan["smem"],
+        *plan["grid"][:2], _stream(x),
     )
-    _raise_on("cheb2_fused", lib, err, f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
-              f"F={Fo}, group={group}")
+    _raise_on("cheb2_fused", lib, err, lambda: f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
+              f"F={Fo}, group={group}, plan {plan}")
     if group == 1:
         fused1_launches += 1
     else:
@@ -398,9 +451,10 @@ def _whole_conv(x: torch.Tensor, band_op, weight: torch.Tensor, launch) -> torch
 def cheb2_banded_v5(x: torch.Tensor, band_op, weight: torch.Tensor, group: int = 4) -> torch.Tensor:
     """Fused K=2 Chebyshev conv with G samples per block (kernel 4,
     `cheb2_banded_pallas_v5`), natural or padded layout; G is `group`
-    halved until it divides the batch. x: [B, V, C]; weight: [2, C, F]."""
-    return _whole_conv(x, band_op, weight,
-                       functools.partial(fused_cheb2, group=v5_group(x.shape[0], group)))
+    halved until it divides the batch. x: [B, V, C]; weight: [2, C, F]. The
+    kernel reads the op's gather pack."""
+    return _whole_conv(x, band_op, weight, functools.partial(
+        fused_cheb2, group=v5_group(x.shape[0], group), pack=band_op.pack))
 
 
 def cheb2_banded_v6(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Tensor:
@@ -433,7 +487,7 @@ def ring_plan(dtype: torch.dtype, B: int, C: int, S: int, T: int, rows_per_step:
     lib = cheb2_ring_lib()
     out = (ctypes.c_int * 4)()
     err = lib.cape_cheb2_ring_plan(_DTYPE_CODES[dtype], B, C, S, T, rows_per_step, out)
-    _raise_on("cheb2_ring plan", lib, err, f"B={B}, C={C}, S={S}, T={T}, R={rows_per_step}")
+    _raise_on("cheb2_ring plan", lib, err, lambda: f"B={B}, C={C}, S={S}, T={T}, R={rows_per_step}")
     if out[0] == 0:
         return None
     return dict(cluster=out[0], channels=out[1], run=out[2], smem=out[3],
@@ -489,7 +543,7 @@ def ring_cheb2(
         _DTYPE_CODES[x.dtype], B, rows_in, C, Fo, S, T, pad_left, rows_out, rows_per_step,
         _stream(x),
     )
-    _raise_on("cheb2_ring", lib, err, f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
+    _raise_on("cheb2_ring", lib, err, lambda: f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
               f"F={Fo}, R={rows_per_step}")
     if rows_per_step == 1:
         ring_launches += 1

@@ -39,12 +39,17 @@ result line):
   9. train time: both routes in turns, 6 rounds of 2 steps.
  10. train mode: apps.main.run (synthetic n_train=64, 2 epochs of one
      step); restore_params reads its checkpoint bit-equal, and decodes.
- 11. fused (after phase 3): the fused conv kernel (rows 1 and 4) against
-     its plain version at each flagship K=2 conv shape and C = F = 64, at
-     every square Laplacian, B = 16 and 32, groups 1, 2 and 4, natural and
+ 11. fused (after phase 3): the fused conv kernel (rows 1 and 4,
+     csrc/cheb2_fused.cu: one streamed GEMM per block tile whose L~x
+     operand is gathered from the op's gather pack through shared memory,
+     f32 on the CUDA cores, bf16 on the tensor cores) against its plain
+     version at each flagship K=2 conv shape and C = F = 64, at every
+     square Laplacian, B = 16 and 32, groups 1, 2 and 4, natural and
      padded, f32 and bf16 (bf16 also against two controls that each drop
-     one of its numerics); times against plain, the v3 route and a copy of
-     L~x, the routes in turns, each event pair around 10 calls.
+     one of its numerics); a call without the pack must raise; each
+     shape's tile plan (`fused_plan`); times
+     against plain, the v3 route and a copy of L~x, the routes in turns,
+     each event pair around 10 calls; the B = 32 sums per dtype.
  12. bm (after phase 11): the batch-major band apply (row 3, the same
      band-gather kernel) against its plain version on every banded lap,
      down, up and down_d op, B = 16 and 32, C = 64, f32 and bf16, with
@@ -442,13 +447,21 @@ def fused_phase(ctx, smi):
     which a kernel that skipped the rounding of L~x, or rounded the
     products before the sum, would not meet."""
     from cape_tpu_torch.ops.kernels.cheb_kernel import (
-        band_apply, band_apply_plain, cheb2_banded_v3, fused_cheb2, fused_cheb2_plain, v5_group,
+        band_apply, band_apply_plain, cheb2_banded_v3, fused_cheb2, fused_cheb2_plain, fused_plan,
+        v5_group,
     )
     from cape_tpu_torch.tools.perf_lab import time_routes
 
     laps = _laps(ctx)
     gen = torch.Generator(device="cuda").manual_seed(2)
     records = []
+    op, x, w = laps[512], torch.zeros(2, 512, 8, device="cuda"), torch.zeros(8, 4, device="cuda")
+    try:
+        fused_cheb2(x, op.blocks, op.pad_left, 512, w, w, 1)
+    except ValueError as e:
+        log(f"fused_cheb2 on a CUDA tensor without the gather pack raises: {e}")
+    else:
+        raise AssertionError("fused_cheb2 launched on a CUDA tensor without the gather pack")
     for P, convs in FUSED_CONVS.items():
         op = laps[P]
         for C, F in convs:
@@ -472,7 +485,7 @@ def fused_phase(ctx, smi):
                             limit = bf16_ulp(scale) + w1_l1 * bf16_ulp(lx.abs().max().item())
                             controls = bf16_controls(x, blocks, op.pad_left, rows, w0, w1)
                         for G in (1, 2, 4):
-                            y = fused_cheb2(x, blocks, op.pad_left, rows, w0, w1, G)
+                            y = fused_cheb2(x, blocks, op.pad_left, rows, w0, w1, G, pack=op.pack)
                             err, _ = _err(y, ref)
                             rec = dict(dtype=name, B=B, P=P, C=C, F=F, G=G, layout=layout,
                                        max_abs_err=err, max_rel_err=err / scale, limit=limit)
@@ -486,23 +499,40 @@ def fused_phase(ctx, smi):
                     # padded layout, last x: times at v5's group and at group 1
                     op_d = dataclasses.replace(op, blocks=blocks)
                     G5 = v5_group(B)
+                    fused = functools.partial(fused_cheb2, x, blocks, op.pad_left, P, w0, w1,
+                                              pack=op.pack)
+                    plans = {G: fused_plan(dtype, B, P, C, F, G, op.pack.width) for G in (G5, 1)}
                     with torch.no_grad():
                         lx = band_apply(x, blocks, op.pad_left, P, pack=op.pack)
                         lx_to = torch.empty_like(lx)
                         t = time_routes({
-                            "ms": lambda: fused_cheb2(x, blocks, op.pad_left, P, w0, w1, G5),
-                            "g1_ms": lambda: fused_cheb2(x, blocks, op.pad_left, P, w0, w1, 1),
+                            "ms": lambda: fused(G5),
+                            "g1_ms": lambda: fused(1),
                             "plain_ms": lambda: fused_cheb2_plain(x, blocks, op.pad_left, P, w0, w1),
                             "v3_ms": lambda: cheb2_banded_v3(x, op_d, w),
                             "lx_copy_ms": lambda: lx_to.copy_(lx),
                         })
                     records.append(dict(dtype=name, B=B, P=P, C=C, F=F, G=G5, layout="padded", **t,
-                                        **conv_bound(blocks, B, P, P, C, F, dtype)))
+                                        **conv_bound(blocks, B, P, P, C, F, dtype),
+                                        plan={f"G{G}": p for G, p in plans.items()}))
                     ratio = f", mean err/control {worst_ratio:.3f}" if dtype == torch.bfloat16 else ""
+                    plan_s = "; ".join(f"G={G} BN {p['BN']}, {p['rows']} rows x {G}, "
+                                       f"{p['smem']} B, grid {p['grid'][:2]}" for G, p in plans.items())
                     log(f"fused {name} x[{B},{P},{C}] F={F} blocks[{blocks.shape[0]},{blocks.shape[1]}]: "
-                        f"worst rel err {worst:.2e}{ratio} over G=1,2,4 x natural,padded; [{smi}] "
-                        f"G={G5} {t['ms']:.4f} ms, G=1 {t['g1_ms']:.4f}, plain {t['plain_ms']:.4f}, "
-                        f"v3 route {t['v3_ms']:.4f}, copy of L~x {t['lx_copy_ms']:.4f}")
+                        f"worst rel err {worst:.2e}{ratio} over G=1,2,4 x natural,padded; {plan_s}; "
+                        f"[{smi}] G={G5} {t['ms']:.4f} ms, G=1 {t['g1_ms']:.4f}, "
+                        f"plain {t['plain_ms']:.4f}, v3 route {t['v3_ms']:.4f}, "
+                        f"copy of L~x {t['lx_copy_ms']:.4f}, bound {records[-1]['bound_ms']:.4f} "
+                        f"({records[-1]['bound_by']})")
+    for name in ("float32", "bfloat16"):
+        timed = [r for r in records if "ms" in r and r["dtype"] == name and r["B"] == 32]
+        sums = {k: sum(r[k] for r in timed) for k in ("ms", "g1_ms", "plain_ms", "v3_ms")}
+        bnd = summed_bound(timed)
+        log(f"fused {name} B=32 padded, summed over {len(timed)} shapes [{smi}]: "
+            f"v5 group {sums['ms']:.4f} ms, G=1 {sums['g1_ms']:.4f}, plain {sums['plain_ms']:.4f}, "
+            f"v3 route {sums['v3_ms']:.4f}, bound {bnd['bound_ms']:.4f} ({bnd['bound_by']}); "
+            f"bound / kernel: v5 group {bnd['bound_ms'] / sums['ms']:.1%}, "
+            f"G=1 {bnd['bound_ms'] / sums['g1_ms']:.1%}")
     return records
 
 
@@ -633,7 +663,8 @@ def ring_phase(ctx, smi):
                     # padded layout, last x: times of both ring kernels and their yardsticks
                     op_d = dataclasses.replace(op, blocks=blocks)
                     routes = {"plain_ms": lambda: ck.fused_cheb2_plain(x, blocks, op.pad_left, P, w0, w1),
-                              "g1_ms": lambda: ck.fused_cheb2(x, blocks, op.pad_left, P, w0, w1, 1),
+                              "g1_ms": lambda: ck.fused_cheb2(x, blocks, op.pad_left, P, w0, w1, 1,
+                                                              pack=op.pack),
                               "v3_ms": lambda: ck.cheb2_banded_v3(x, op_d, w)}
                     for R, key in ((1, "ms"), (2, "r2_ms")):
                         if plans[R] is not None:
@@ -1150,10 +1181,12 @@ def main():
     # the ring phase's main path (rows 5, 6); the worst f32 error over their
     # phases; times and bounds summed over the batch-32 f32 cases (every
     # FUSED_CONVS shape, padded, that the kernel ran; every banded op). No
-    # single library call computes the fused conv.
+    # single library call computes the fused conv: rows 1 and 4 carry the
+    # summed v3 route (band-apply kernel plus two matmuls) as their yardstick.
     fused_err = lambda g: max(r["max_abs_err"] for r in fused_records
                               if r["dtype"] == "float32" and "max_abs_err" in r and (r["G"] == 1) == g)
     fused_t = [r for r in fused_records if "ms" in r and r["dtype"] == "float32" and r["B"] == 32]
+    fused_v3_ms = sum(r["v3_ms"] for r in fused_t)
     bm_f32 = [r for r in bm_records if r["dtype"] == "float32"]
     bm_t = [r for r in bm_f32 if r["B"] == 32]
 
@@ -1173,7 +1206,7 @@ def main():
         "replaces": REPLACES_V1, "launches": lab_counts["cheb2_fused_g1"],
         "max_abs_err": fused_err(True),
         "ms": sum(r["g1_ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
-        **summed_bound(fused_t), "library_ms": None,
+        **summed_bound(fused_t), "library_ms": None, "v3_ms": fused_v3_ms,
     }, {
         "name": "band_apply_bm", "route": "cuda", "source": GATHER_SOURCE,
         "replaces": REPLACES_BM, "launches": lab_counts["band_apply_bm"],
@@ -1185,7 +1218,7 @@ def main():
         "replaces": REPLACES_V5, "launches": lab_counts["cheb2_fused"],
         "max_abs_err": fused_err(False),
         "ms": sum(r["ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
-        **summed_bound(fused_t), "library_ms": None,
+        **summed_bound(fused_t), "library_ms": None, "v3_ms": fused_v3_ms,
     }, ring_row("cheb2_ring (v6, R=1)", REPLACES_V6, 1, "ms"),
         ring_row("cheb2_ring (v7, R=2)", REPLACES_V7, 2, "r2_ms")]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.2f} s in all")

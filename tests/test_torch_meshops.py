@@ -71,3 +71,47 @@ def test_build_pyramid_matches(small_mesh, monkeypatch):
     verts, faces = small_mesh
     for factors in ([1, 2, 1, 2, 1, 2, 1, 1], [2, 2, 2, 2]):
         _same_pyramid(build_pyramid(verts, faces, factors), jax_build(verts, faces, factors))
+
+
+@pytest.mark.parametrize("factors", [[1, 2, 1, 2, 1, 2, 1, 1], [2, 2, 2, 2]])
+def test_upsamples_differ_from_the_native_bvh_only_at_ties(small_mesh, factors):
+    """The toy pyramid's upsample matrices from the port (numpy nearest
+    triangle) against `cape_tpu.meshops` with its native C++ BVH in the
+    path. Every row where the two differ is a tie: the two chosen triangles
+    lie equally far from the fine vertex, within 1e-12 of the mesh scale.
+    Where both chose the same triangle, U @ coarse_verts agrees within 1e-9
+    of the scale. Where they chose different triangles, each closest point
+    lies at that same distance from the vertex, but the two points need not
+    coincide: on the toy pyramid three vertices get points 6.8e-3 apart."""
+    from cape_tpu.meshops import native_aabb
+    from cape_tpu.meshops.pyramid import build_pyramid as jax_build
+    from cape_tpu_torch.meshops.pyramid import build_pyramid
+    from cape_tpu_torch.meshops.transfer import _nearest_numpy, closest_point_on_triangles
+
+    native_aabb._load()   # the BVH is in the JAX package's path (built if missing)
+    verts, faces = small_mesh
+    scale = float(np.ptp(verts, axis=0).max())
+    got, want = build_pyramid(verts, faces, factors), jax_build(verts, faces, factors)
+    ties = 0
+    for i, (u_port, u_jax) in enumerate(zip(got.upsamples, want.upsamples, strict=True)):
+        coarse_v, coarse_f, fine_v = want.verts[i + 1], want.faces[i + 1], want.verts[i]
+        np.testing.assert_array_equal(got.verts[i + 1], coarse_v)
+        np.testing.assert_array_equal(got.faces[i + 1], coarse_f)
+        points = (u_port @ coarse_v, u_jax @ coarse_v)
+        differ = np.flatnonzero(abs(sp.csr_matrix(u_port) - sp.csr_matrix(u_jax)).sum(1).A1)
+        p = fine_v[differ]
+        chosen = (_nearest_numpy(p, coarse_v, coarse_f)[0],
+                  native_aabb.nearest_triangles(coarse_v, coarse_f, p)[0])
+        dist = [np.sqrt(closest_point_on_triangles(p, coarse_v[coarse_f[f]][:, None])[0][:, 0])
+                for f in chosen]
+        np.testing.assert_allclose(dist[0], dist[1], rtol=0, atol=1e-12 * scale,
+                                   err_msg=f"upsamples[{i}]: rows {differ} are not ties")
+        other = differ[chosen[0] != chosen[1]]
+        ties += len(other)
+        for q in points:
+            np.testing.assert_allclose(np.linalg.norm(q[other] - fine_v[other], axis=1),
+                                       dist[0][chosen[0] != chosen[1]], rtol=0, atol=1e-12 * scale)
+        same = np.setdiff1d(np.arange(len(fine_v)), other)
+        np.testing.assert_allclose(points[0][same], points[1][same], rtol=0, atol=1e-9 * scale,
+                                   err_msg=f"upsamples[{i}] @ coarse verts")
+    assert ties >= 1   # the ties the two backends break apart
