@@ -1,6 +1,7 @@
 // Fused K=2 Chebyshev graph convolution for Hopper (sm_90a), batch-major,
 // as one streamed GEMM whose A operand is made on the fly from the band's
-// gather pack.
+// gather pack; and a windowed variant of that GEMM (`cheb2_window_kernel`,
+// at the end) that gathers from x rows staged in shared memory.
 //
 //   lx[b, r, :] = round_T( sum_w vals[r, w] * x[b, cols[r, w], :] )
 //   y[b, r, :]  = round_T( x[b, r - pad_left % 128, :] . w0 + lx[b, r, :] . w1 )
@@ -14,13 +15,19 @@
 // hold it; both products are summed in one f32 accumulator and y is rounded
 // once.
 //
-// Replaces two TPU kernels of cape_tpu/ops/pallas/cheb_kernel.py that
+// Replaces four TPU kernels of cape_tpu/ops/pallas/cheb_kernel.py that
 // compute the same conv with the intermediate L~x kept out of device memory:
 // `_pallas_cheb2_impl` (kernel 1, body `_make_kernel`: one sample per grid
 // row) and `_pallas_cheb2_v5_impl` (kernel 4, body `_make_kernel_v5`: G
-// samples merged into the 128 lanes against a block-diagonal kron(I_G, W)).
-// The block-diagonal weight is not built: it is a trick to fill the TPU's
-// lanes and would cost G times the projection FLOPs.
+// samples merged into the 128 lanes against a block-diagonal kron(I_G, W)),
+// here `cheb2_fused_kernel`; `_pallas_cheb2_v6_impl` (kernel 5, body
+// `_make_kernel_v6`) and `_pallas_cheb2_v7_impl` (kernel 6, `_make_kernel_v7`:
+// v6 with two row tiles a grid step), which walk the padded x tiles in order
+// and keep those the band still needs in a VMEM ring, here
+// `cheb2_window_kernel`. The block-diagonal weight is not built: it is a
+// trick to fill the TPU's lanes and would cost G times the projection FLOPs.
+// Blocks on the GPU run in no order, so no ring walks the sequence: each
+// block stages the x rows its own tiles read instead.
 //
 // The conv is one GEMM per block tile: M = BM = 128 rows (G samples x R =
 // 128 / G rows each; G = 1 for kernel 1, v5's group for kernel 4), N = BN
@@ -71,9 +78,9 @@
 // chunk in a few hundred cycles, the latency of the synchronous gather and
 // of each chunk's barrier.
 //
-// The tile choice lives in Python (`fused_plan` in
-// cape_tpu_torch/ops/kernels/cheb_kernel.py); the entry below checks that the
-// plan it is given is the one this source implements.
+// The tile choices live in Python (`fused_plan` and `ring_plan` in
+// cape_tpu_torch/ops/kernels/cheb_kernel.py); the entries below check that
+// the plan they are given is the one this source implements.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -183,6 +190,27 @@ __device__ __forceinline__ int2 split(const Conv<T>& p, int m) {
   if constexpr (sizeof(T) == 4) return make_int2(m / p.R, m % p.R);
   const int s = (m * p.rdiv) >> 16;
   return make_int2(s, m - s * p.R);
+}
+
+// Rows c0.. of w (w0 or w1, [C, F]), columns f0.. into dst [BK][ldb(BN)],
+// zero outside, by NT threads: cp.async 16 bytes a copy where p.wvec.
+template <typename T, int BN, int NT>
+__device__ __forceinline__ void load_w_chunk(const Conv<T>& p, const T* src, int c0, int f0,
+                                             T* dst, int tid) {
+  constexpr int VEC = Tile<T>::VEC, BK = Tile<T>::BK, LDB = Tile<T>::ldb(BN);
+  if (p.wvec) {
+    for (int l = tid; l < BK * BN / VEC; l += NT) {
+      const int k = l / (BN / VEC), n = (l % (BN / VEC)) * VEC;
+      const bool in = c0 + k < p.C && f0 + n < p.F;
+      cp_async16(dst + k * LDB + n, in ? src + (int64_t)(c0 + k) * p.F + f0 + n : src, in);
+    }
+  } else {
+    for (int l = tid; l < BK * BN; l += NT) {
+      const int k = l / BN, n = l % BN;
+      const bool in = c0 + k < p.C && f0 + n < p.F;
+      dst[k * LDB + n] = in ? src[(int64_t)(c0 + k) * p.F + f0 + n] : from_f32<T>(0.f);
+    }
+  }
 }
 
 // N consecutive outputs of tile row m from column n, rounded once to T.
@@ -393,23 +421,10 @@ cheb2_fused_kernel(const Conv<T> p, const int* __restrict__ cols,
     if (in) atomicMax(cnt + rr, l % p.W + 1);
   }
 
-  // chunk kc of B: rows c0.. of w0 (kc < nC) or w1, columns f0.. ; zero outside
+  // chunk kc of B: rows c0.. of w0 (kc < nC) or w1
   auto load_w = [&](int kc, T* dst) {
-    const T* src = kc < nC ? p.w0 : p.w1;
-    const int c0 = (kc < nC ? kc : kc - nC) * BK;
-    if (p.wvec) {
-      for (int l = tid; l < BK * BN / VEC; l += THREADS) {
-        const int k = l / (BN / VEC), n = (l % (BN / VEC)) * VEC;
-        const bool in = c0 + k < p.C && f0 + n < p.F;
-        cp_async16(dst + k * LDB + n, in ? src + (int64_t)(c0 + k) * p.F + f0 + n : src, in);
-      }
-    } else {
-      for (int l = tid; l < BK * BN; l += THREADS) {
-        const int k = l / BN, n = l % BN;
-        const bool in = c0 + k < p.C && f0 + n < p.F;
-        dst[k * LDB + n] = in ? src[(int64_t)(c0 + k) * p.F + f0 + n] : from_f32<T>(0.f);
-      }
-    }
+    load_w_chunk<T, BN, THREADS>(p, kc < nC ? p.w0 : p.w1, (kc < nC ? kc : kc - nC) * BK, f0,
+                                 dst, tid);
   };
   // chunk kc < nC of A: x_c, x row r - shift under output row r; zero outside x
   auto load_xc = [&](int kc, T* dst) {
@@ -536,6 +551,17 @@ int launch(const Conv<T>& p, bool xvec, const int* cols, const float* vals, int 
   return (int)cudaGetLastError();
 }
 
+// Sets p's vector flags for w and y; returns whether x takes 16-byte accesses.
+template <typename T>
+bool vector_flags(Conv<T>& p) {
+  constexpr int VEC = Tile<T>::VEC;
+  const uintptr_t w = (uintptr_t)p.w0 | (uintptr_t)p.w1;
+  p.wvec = p.F % VEC == 0 && w % 16 == 0;
+  p.yvec = sizeof(T) == 4 ? p.F % 4 == 0 && (uintptr_t)p.y % 16 == 0
+                          : p.F % 2 == 0 && (uintptr_t)p.y % 4 == 0;
+  return p.C % VEC == 0 && (uintptr_t)p.x % 16 == 0;
+}
+
 template <typename T>
 int dispatch(Conv<T> p, const int* cols, const float* vals, int B, int BN, int grid_x,
              int grid_y, int smem, cudaStream_t s) {
@@ -544,12 +570,7 @@ int dispatch(Conv<T> p, const int* cols, const float* vals, int B, int BN, int g
   if (p.R < 1 || p.G * p.R > BM || want_x != grid_x || grid_y != B / p.G ||
       smem != smem_bytes<T>(BN, p.R, p.W) || smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  constexpr int VEC = Tile<T>::VEC;
-  const uintptr_t w = (uintptr_t)p.w0 | (uintptr_t)p.w1;
-  const bool xvec = p.C % VEC == 0 && (uintptr_t)p.x % 16 == 0;
-  p.wvec = p.F % VEC == 0 && w % 16 == 0;
-  p.yvec = sizeof(T) == 4 ? p.F % 4 == 0 && (uintptr_t)p.y % 16 == 0
-                          : p.F % 2 == 0 && (uintptr_t)p.y % 4 == 0;
+  const bool xvec = vector_flags(p);
   if constexpr (sizeof(T) == 4) {
     if (BN == 128) return launch<T, 128>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
     if (BN == 64) return launch<T, 64>(p, xvec, cols, vals, grid_x, grid_y, smem, s);
@@ -572,6 +593,226 @@ int run(const void* x, const void* cols, const void* vals, const void* w0, const
             R > 0 ? (65536 + R - 1) / R : 0, false, false};
   return dispatch<T>(p, static_cast<const int*>(cols), static_cast<const float*>(vals), B, BN,
                      grid_x, grid_y, smem, s);
+}
+
+// ---- the windowed conv (TPU kernels 5 and 6)
+//
+// The same function over `tiles` consecutive 128-row output tiles per block
+// (1 for kernel 5, 2 for kernel 6), one sample, BN output columns. The x
+// rows those tiles read, their pack columns and their own rows (the
+// centre, row r - shift under output row r), form one span [lo, hi), the
+// group's window, built with the pack (`row_windows` in
+// cape_tpu_torch/ops/banded.py; 218-667 rows on the flagship). Per chunk of
+// BK channels the block copies the window's rows into shared memory by
+// cp.async (each row once, zero outside x), gathers the L~x chunk of its
+// rows from there with the pairs' offsets taken relative to lo, and runs
+// both products on the product tiles above: x_c read in place from the
+// window (the same row stride as A), then L~x. Chunk c + 1's window and
+// weight copies are issued once chunk c's gather and x_c product are done,
+// so they overlap its L~x product. At tiles = 2 the block is two groups of
+// 256 threads, each with its own product tile and 128-row tile, sharing
+// the window, the pairs and the copies. The window takes most of the
+// block's shared memory (up to ~96 KB of ~210 KB): one block an SM.
+template <typename T>
+constexpr int64_t window_smem_bytes(int BN, int tiles, int W, int window_rows) {
+  return (int64_t)sizeof(T) * ((int64_t)(window_rows + tiles * BM) * Tile<T>::LDA +
+                               3LL * Tile<T>::BK * Tile<T>::ldb(BN)) +
+         8LL * tiles * BM * W + 4LL * tiles * BM;
+}
+
+template <typename T, int BN, bool XV, int TILES>
+__global__ void __launch_bounds__(TILES * THREADS, 1)
+cheb2_window_kernel(const Conv<T> p, const int* __restrict__ cols,
+                    const float* __restrict__ vals, const int* __restrict__ windows,
+                    int window_rows, int n_col_tiles) {
+  constexpr int VEC = Tile<T>::VEC, BK = Tile<T>::BK, LDA = Tile<T>::LDA, LDB = Tile<T>::ldb(BN);
+  constexpr int NT = TILES * THREADS, ROWS = TILES * BM;
+  extern __shared__ float4 smem4[];
+  T* Xw = reinterpret_cast<T*>(smem4);                         // [window_rows][LDA]
+  T* As = Xw + window_rows * LDA;                              // [ROWS][LDA] L~x
+  T* Bs = As + ROWS * LDA;                                     // [3][BK][LDB] w0, w1, w1
+  int* offs = reinterpret_cast<int*>(Bs + 3 * BK * LDB);       // [ROWS][W] window offsets
+  float* pv = reinterpret_cast<float*>(offs + ROWS * p.W);     // [ROWS][W] values
+  int* cnt = reinterpret_cast<int*>(pv + ROWS * p.W);          // [ROWS] pairs to walk
+
+  const int tid = threadIdx.x;
+  const int grp = blockIdx.x / n_col_tiles;
+  const int f0 = (blockIdx.x % n_col_tiles) * BN;
+  const int r0 = grp * ROWS;
+  const int b = blockIdx.y;
+  const int nC = (p.C + BK - 1) / BK;
+  // the window's first row, from the pack's windows (read again where it is
+  // needed: values held across the K loop spill the BN = 128 product tiles)
+  auto window_lo = [&] { return __ldg(windows + 2 * (blockIdx.x / n_col_tiles)); };
+
+  // chunk c0.. of the window: x rows lo + i for i < nw, zero outside x
+  auto load_window = [&](int c0) {
+    const int lo = window_lo(), nw = __ldg(windows + 2 * (blockIdx.x / n_col_tiles) + 1) - lo;
+    const T* xb = p.x + (int64_t)blockIdx.y * p.rows_in * p.C;
+    if constexpr (XV) {
+      constexpr int NV = BK / VEC;
+      for (int l = tid; l < nw * NV; l += NT) {
+        const int i = l / NV, k = (l % NV) * VEC, xr = lo + i;
+        const bool in = xr >= 0 && xr < p.rows_in && c0 + k < p.C;
+        cp_async16(Xw + i * LDA + k, in ? xb + (int64_t)xr * p.C + c0 + k : p.x, in);
+      }
+    } else {   // one element a thread over the chunk's kw channels of x
+      const int kw = min(BK, p.C - c0);
+      for (int l = tid; l < nw * kw; l += NT) {
+        const int i = l / kw, k = l % kw, xr = lo + i;
+        Xw[i * LDA + k] =
+            xr >= 0 && xr < p.rows_in ? xb[(int64_t)xr * p.C + c0 + k] : from_f32<T>(0.f);
+      }
+      for (int l = tid; l < nw * (BK - kw); l += NT)
+        Xw[l / (BK - kw) * LDA + kw + l % (BK - kw)] = from_f32<T>(0.f);
+    }
+  };
+  auto load_w = [&](const T* src, int c0, T* dst) {
+    load_w_chunk<T, BN, NT>(p, src, c0, f0, dst, tid);
+  };
+  // the L~x chunk over channels c0.., rounded to T, from the window
+  auto gather = [&](int c0) {
+    if constexpr (XV) {
+      constexpr int NV = BK / VEC;
+      for (int l = tid; l < ROWS * NV; l += NT) {
+        const int m = l / NV, k = (l % NV) * VEC;
+        float acc[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+        if (c0 + k < p.C) {
+          const int* o = offs + m * p.W;
+          const float* v = pv + m * p.W;
+          const int n = cnt[m];
+          const T* xk = Xw + k;
+#pragma unroll 4
+          for (int w = 0; w < n; ++w) {
+            const int ow = o[w];
+            const uint4 q = ow >= 0 ? *reinterpret_cast<const uint4*>(xk + ow) : make_uint4(0, 0, 0, 0);
+            float xv[VEC];
+            unpack<T>(q, xv);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] = fmaf(v[w], xv[e], acc[e]);
+          }
+        }
+        store16_rounded<T>(As + m * LDA + k, acc);
+      }
+    } else {
+      const int kw = min(BK, p.C - c0);
+      for (int l = tid; l < ROWS * kw; l += NT) {
+        const int m = l / kw, k = l % kw;
+        const int* o = offs + m * p.W;
+        const float* v = pv + m * p.W;
+        const int n = cnt[m];
+        float acc = 0.f;
+#pragma unroll 4
+        for (int w = 0; w < n; ++w) {
+          const int ow = o[w];
+          acc = fmaf(v[w], ow >= 0 ? to_f32(Xw[ow + k]) : 0.f, acc);
+        }
+        As[m * LDA + k] = from_f32<T>(acc);
+      }
+      for (int l = tid; l < ROWS * (BK - kw); l += NT)
+        As[l / (BK - kw) * LDA + kw + l % (BK - kw)] = from_f32<T>(0.f);
+    }
+  };
+
+  const int lo = window_lo();
+  for (int rr = tid; rr < ROWS; rr += NT) cnt[rr] = 0;
+  __syncthreads();
+  load_window(0);
+  load_w(p.w0, 0, Bs);
+  load_w(p.w1, 0, Bs + BK * LDB);
+  cp_async_commit();
+  // the block's pack pairs, once, while chunk 0 arrives: the offset of the
+  // pair's x row in the window (-1 where it reads outside x) and the value
+  // rounded to T; per row, the pairs up to its last one that reads x
+  for (int l = tid; l < ROWS * p.W; l += NT) {
+    const int rr = l / p.W, r = r0 + rr;
+    int c = -1;
+    float v = 0.f;
+    if (r < p.rows_out) {
+      const int64_t at = (int64_t)r * p.W + l % p.W;
+      c = cols[at];
+      v = to_f32(from_f32<T>(vals[at]));
+    }
+    const bool in = c >= 0 && c < p.rows_in;
+    offs[l] = in ? (c - lo) * LDA : -1;
+    pv[l] = v;
+    if (in) atomicMax(cnt + rr, l % p.W + 1);
+  }
+
+  // the thread's row tile (threads / THREADS): its product tile, its x_c
+  // rows in the window, its L~x rows
+  const bool live = r0 + tid / THREADS * BM < p.rows_out;   // a last group may hold one tile
+  Product<T, BN> prod;
+  prod.init(tid % THREADS);
+  for (int c = 0; c < nC; ++c) {
+    cp_async_wait_all();
+    __syncthreads();   // chunk c's window and weights are in; L~x's stage is free
+    gather(c * BK);
+    if (live) prod.chunk(Xw + (r0 + tid / THREADS * BM - p.shift - window_lo()) * LDA, Bs);
+    __syncthreads();   // L~x's chunk is whole; the window and w0's stage are free
+    if (c + 1 < nC) {
+      load_window((c + 1) * BK);
+      load_w(p.w0, (c + 1) * BK, Bs);
+      load_w(p.w1, (c + 1) * BK, Bs + (1 + (c + 1) % 2) * BK * LDB);
+    }
+    cp_async_commit();
+    if (live) prod.chunk(As + tid / THREADS * BM * LDA, Bs + (1 + c % 2) * BK * LDB);
+  }
+  if (live) prod.store(p, b, r0 + tid / THREADS * BM, f0);
+}
+
+template <typename T, int BN, int TILES>
+int launch_window(const Conv<T>& p, bool xvec, const int* cols, const float* vals,
+                  const int* windows, int window_rows, int grid_x, int grid_y, int smem,
+                  cudaStream_t s) {
+  auto kernel = xvec ? cheb2_window_kernel<T, BN, true, TILES>
+                     : cheb2_window_kernel<T, BN, false, TILES>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(grid_x, grid_y), TILES * THREADS, smem, s>>>(p, cols, vals, windows, window_rows,
+                                                             (p.F + BN - 1) / BN);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int TILES>
+int launch_window_bn(const Conv<T>& p, bool xvec, int BN, const int* cols, const float* vals,
+                     const int* windows, int window_rows, int grid_x, int grid_y, int smem,
+                     cudaStream_t s) {
+  if (BN == 128)
+    return launch_window<T, 128, TILES>(p, xvec, cols, vals, windows, window_rows, grid_x, grid_y, smem, s);
+  if (BN == 64)
+    return launch_window<T, 64, TILES>(p, xvec, cols, vals, windows, window_rows, grid_x, grid_y, smem, s);
+  if (BN == 32)
+    return launch_window<T, 32, TILES>(p, xvec, cols, vals, windows, window_rows, grid_x, grid_y, smem, s);
+  if constexpr (sizeof(T) == 2)
+    if (BN == 16)
+      return launch_window<T, 16, TILES>(p, xvec, cols, vals, windows, window_rows, grid_x, grid_y, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int run_window(const void* x, const void* cols, const void* vals, const void* windows,
+               const void* w0, const void* w1, void* y, int B, int rows_in, int C, int F, int W,
+               int pad_left, int rows_out, int tiles, int BN, int window_rows, int smem,
+               int grid_x, int grid_y, cudaStream_t s) {
+  // the plan must be the one this source implements (ring_plan in Python)
+  const int64_t groups = ((rows_out + BM - 1) / BM + tiles - 1) / tiles;
+  if ((tiles != 1 && tiles != 2) || window_rows < tiles * BM || grid_y != B ||
+      grid_x != (int64_t)((F + BN - 1) / BN) * groups ||
+      smem != window_smem_bytes<T>(BN, tiles, W, window_rows) || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  Conv<T> p{static_cast<const T*>(x), static_cast<const T*>(w0), static_cast<const T*>(w1),
+            static_cast<T*>(y), rows_in, C, F, W, pad_left % BM, rows_out, 1, BM,
+            (65536 + BM - 1) / BM, false, false};
+  const bool xvec = vector_flags(p);
+  const int* c = static_cast<const int*>(cols);
+  const float* v = static_cast<const float*>(vals);
+  const int* win = static_cast<const int*>(windows);
+  if (tiles == 1)
+    return launch_window_bn<T, 1>(p, xvec, BN, c, v, win, window_rows, grid_x, grid_y, smem, s);
+  return launch_window_bn<T, 2>(p, xvec, BN, c, v, win, window_rows, grid_x, grid_y, smem, s);
 }
 
 }  // namespace
@@ -600,6 +841,34 @@ extern "C" int cape_cheb2_fused(const void* x, const void* cols, const void* val
   if (dtype == 1)
     return run<__nv_bfloat16>(x, cols, vals, w0, w1, y, B, rows_in, C, F, W, pad_left, rows_out,
                               G, BN, R, grid_x, grid_y, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16. x [B, rows_in, C], w0 and w1 [C, F] and
+// y [B, rows_out, F] are contiguous, in that dtype; cols (int32) and vals
+// (float32) are the gather pack's [>= rows_out, W] arrays and windows
+// (int32) its [groups, 2] row windows for `tiles` row tiles a group (1 or
+// 2), contiguous; all on the device of `stream`. The plan (BN, BK, the
+// largest window's rows, shared-memory bytes, grid) is `ring_plan`'s; it is
+// refused unless it is the one this source implements. Returns the
+// launch's cudaError_t (0 = launched).
+extern "C" int cape_cheb2_window(const void* x, const void* cols, const void* vals,
+                                 const void* windows, const void* w0, const void* w1, void* y,
+                                 int dtype, int B, int rows_in, int C, int F, int W, int pad_left,
+                                 int rows_out, int tiles, int BN, int bk, int window_rows,
+                                 int smem, int grid_x, int grid_y, void* stream) {
+  const int want_bk = dtype == 0 ? Tile<float>::BK : Tile<__nv_bfloat16>::BK;
+  if (B <= 0 || B > 65535 || C <= 0 || F <= 0 || W <= 0 || rows_in < 0 || pad_left < 0 ||
+      rows_out <= 0 || (int64_t)rows_in * C > INT32_MAX || bk != want_bk)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_window<float>(x, cols, vals, windows, w0, w1, y, B, rows_in, C, F, W, pad_left,
+                             rows_out, tiles, BN, window_rows, smem, grid_x, grid_y, s);
+  if (dtype == 1)
+    return run_window<__nv_bfloat16>(x, cols, vals, windows, w0, w1, y, B, rows_in, C, F, W,
+                                     pad_left, rows_out, tiles, BN, window_rows, smem, grid_x,
+                                     grid_y, s);
   return (int)cudaErrorInvalidValue;
 }
 

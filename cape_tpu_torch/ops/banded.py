@@ -19,7 +19,9 @@ layout-transposed copies of every shifted view.
 
 Each op also carries the gather pack of its blocks and of its transpose
 (`gather_pack`): the band's non-zeros as a fixed-width list per output
-row, which the band-gather kernel reads in place of the dense tiles.
+row, which the band-gather kernel reads in place of the dense tiles, and
+the x rows that each group of row tiles reads (`row_windows`), which the
+windowed conv kernel stages in shared memory.
 """
 
 from __future__ import annotations
@@ -77,6 +79,11 @@ def padded_size(n: int, block: int = 128) -> int:
     return -(-n // block) * block
 
 
+# row tiles per block of the windowed conv kernel: 1 (TPU kernel 5, v6)
+# and 2 (kernel 6, v7)
+WINDOW_TILES = (1, 2)
+
+
 @dataclasses.dataclass(frozen=True)
 class GatherPack:
     """The non-zeros of banded blocks [S, T, rb, cb] as a fixed-width list
@@ -84,7 +91,9 @@ class GatherPack:
     vals[r, w] * x[cols[r, w]] over w < W, the largest row count of
     non-zeros. Entries are in ascending column order; unused slots hold
     column -1 and value 0. (S, T, cb, pad_left) record the blocks and
-    offset the pack was built for."""
+    offset the pack was built for. windows[k - 1] is `row_windows` of the
+    pack for k = WINDOW_TILES[k - 1] row tiles a group, and
+    window_rows[k - 1] its largest window."""
 
     cols: torch.Tensor                                 # int32 [T*rb, W]
     vals: torch.Tensor                                 # float32 [T*rb, W]
@@ -92,13 +101,16 @@ class GatherPack:
     T: int
     cb: int
     pad_left: int
+    windows: tuple[torch.Tensor, ...]                  # int32 [ceil(T / k), 2] each
+    window_rows: tuple[int, ...]
 
     @property
     def width(self) -> int:
         return self.cols.shape[1]
 
     def to(self, device) -> "GatherPack":
-        return dataclasses.replace(self, cols=self.cols.to(device), vals=self.vals.to(device))
+        return dataclasses.replace(self, cols=self.cols.to(device), vals=self.vals.to(device),
+                                   windows=tuple(w.to(device) for w in self.windows))
 
     def check(self, name: str, blocks: torch.Tensor, pad_left: int) -> None:
         """Raise unless the pack was built for blocks of this shape at this
@@ -118,7 +130,7 @@ def gather_pack(blocks: np.ndarray, pad_left: int) -> GatherPack:
     pad and are dropped; columns past the end of x are kept (the kernel
     masks them at run time). Values in float32. The ELL layout of the JAX
     package's `_pack_ell` (cape_tpu/ops/sparse.py), derived from the band
-    blocks."""
+    blocks; with it the pack's row windows for each of WINDOW_TILES."""
     S, T, rb, cb = blocks.shape
     k, t, i, j = np.unravel_index(np.flatnonzero(blocks != 0), blocks.shape)
     rows = t * rb + i
@@ -135,7 +147,27 @@ def gather_pack(blocks: np.ndarray, pad_left: int) -> GatherPack:
     pv = np.zeros((T * rb, width), np.float32)
     pc[rows, slot] = cols
     pv[rows, slot] = vals
-    return GatherPack(torch.from_numpy(pc), torch.from_numpy(pv), S, T, cb, int(pad_left))
+    windows = [row_windows(pc, rb, pad_left % rb, k) for k in WINDOW_TILES]
+    return GatherPack(torch.from_numpy(pc), torch.from_numpy(pv), S, T, cb, int(pad_left),
+                      tuple(torch.from_numpy(w) for w in windows),
+                      tuple(int((w[:, 1] - w[:, 0]).max()) for w in windows))
+
+
+def row_windows(cols: np.ndarray, rb: int, shift: int, tiles: int) -> np.ndarray:
+    """The x rows [lo, hi) that each group of `tiles` consecutive rb-row
+    output tiles reads, int32 [groups, 2], for a pack's columns `cols`
+    [T*rb, W]: the span of the group's pack columns and of its centre rows
+    [g*tiles*rb - shift, (g+1)*tiles*rb - shift) (output row r's own x row
+    is r - shift, shift = pad_left % rb). lo may be negative and hi past
+    the end of x: the kernel reads those rows as zero."""
+    span = tiles * rb
+    groups = -(-cols.shape[0] // span)
+    c = np.pad(cols, ((0, groups * span - cols.shape[0]), (0, 0)), constant_values=-1)
+    c = c.reshape(groups, -1).astype(np.int64)
+    start = np.arange(groups) * span - shift
+    lo = np.minimum(start, np.where(c >= 0, c, start[:, None]).min(1))
+    hi = np.maximum(start + span, c.max(1) + 1)
+    return np.stack([lo, hi], 1).astype(np.int32)
 
 
 @dataclasses.dataclass

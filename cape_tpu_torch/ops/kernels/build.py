@@ -59,15 +59,21 @@ def build(name: str) -> Path:
     return lib
 
 
-def _load(name: str, fn: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
-    """Build csrc/<name>.cu and bind its entry `fn`: n_ptrs pointers, then
-    n_ints ints, then the stream; it returns a cudaError_t."""
-    lib = ctypes.CDLL(str(build(name)))
+def _bind(lib: ctypes.CDLL, fn: str, n_ints: int, n_ptrs: int) -> None:
+    """Bind the entry `fn` of lib: n_ptrs pointers, then n_ints ints, then
+    the stream; it returns a cudaError_t."""
     p, i = ctypes.c_void_p, ctypes.c_int
     entry = getattr(lib, fn)
     entry.argtypes = [p] * n_ptrs + [i] * n_ints + [p]
     entry.restype = i
-    lib.cape_cuda_error_string.argtypes = [i]
+
+
+def _load(name: str, fn: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
+    """Build csrc/<name>.cu and bind its entry `fn` (`_bind`) and its error
+    string."""
+    lib = ctypes.CDLL(str(build(name)))
+    _bind(lib, fn, n_ints, n_ptrs)
+    lib.cape_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cape_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -81,18 +87,13 @@ def band_gather_lib() -> ctypes.CDLL:
 
 @functools.cache
 def cheb2_fused_lib() -> ctypes.CDLL:
-    """The fused K=2 conv kernel's library (kernels 1 and 4), built on first use."""
+    """The fused K=2 conv kernels' library, built on first use: the fused
+    kernel (kernels 1 and 4) and the windowed one (kernels 5 and 6)."""
     # x, pack cols, pack vals, w0, w1, y; dtype, B, rows_in, C, F, W, pad_left,
     # rows_out, group, then the plan: BM, BN, BK, stages, rows, smem, grid x, grid y
-    return _load("cheb2_fused", "cape_cheb2_fused", n_ints=17, n_ptrs=6)
-
-
-@functools.cache
-def cheb2_ring_lib() -> ctypes.CDLL:
-    """The ring fused K=2 conv kernel's library (kernels 5 and 6), built on first use."""
-    # x, blocks, w0, w1, y; dtype, B, rows_in, C, F, S, T, pad_left, rows_out, R
-    lib = _load("cheb2_ring", "cape_cheb2_ring", n_ints=10, n_ptrs=5)
-    # dtype, B, C, S, T, R; int[4] out: cluster size, channels per block, run, bytes
-    lib.cape_cheb2_ring_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    lib.cape_cheb2_ring_plan.restype = ctypes.c_int
+    lib = _load("cheb2_fused", "cape_cheb2_fused", n_ints=17, n_ptrs=6)
+    # x, pack cols, pack vals, pack windows, w0, w1, y; dtype, B, rows_in, C, F,
+    # W, pad_left, rows_out, tiles, then the plan: BN, BK, window rows, smem,
+    # grid x, grid y
+    _bind(lib, "cape_cheb2_window", n_ints=15, n_ptrs=7)
     return lib

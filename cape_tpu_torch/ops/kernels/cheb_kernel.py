@@ -27,9 +27,10 @@ Counterparts of the entries of `cape_tpu/ops/pallas/cheb_kernel.py`:
     them).
   * `cheb2_banded_v6` and `cheb2_banded_v7` (`cheb2_banded_pallas_v6` / `_v7`,
     TPU kernels `_pallas_cheb2_v6_impl` and `_pallas_cheb2_v7_impl`): the same
-    fused conv in the CUDA kernel `csrc/cheb2_ring.cu` (`ring_cheb2`), which
-    walks runs of consecutive row tiles with a shared-memory ring of x tiles,
-    one or two tiles per step, and the same plain backward.
+    fused conv in the windowed kernel of `csrc/cheb2_fused.cu` (`ring_cheb2`),
+    whose block stages the x rows that one or two row tiles read (their
+    window, from the op's gather pack) in shared memory, chunk by chunk, and
+    gathers L~x from there; tiled by `ring_plan`; the same plain backward.
   * `banded_apply_bm` (TPU kernel `banded_apply_bm`): y = M x for a banded M
     with any column block, batch-major, in the same band-gather kernel.
 
@@ -39,13 +40,12 @@ blocks (`pack=`): a CUDA launch needs it, and the wrappers never build one.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from cape_tpu_torch.ops.banded import GatherPack, apply_blocks
+from cape_tpu_torch.ops.banded import WINDOW_TILES, GatherPack, apply_blocks
 
 RB = 128
 
@@ -53,7 +53,7 @@ RB = 128
 # cheb2_banded_v3 and cheb2_banded_v2) and with one (the backward of
 # cheb2_banded_v3); of fused_cheb2 with a group of 1 (kernel 1's case) and
 # with a larger group (kernel 4's); of banded_apply_bm; of ring_cheb2 with
-# one row tile per step (kernel 5's case) and with two (kernel 6's). The
+# one row tile per block (kernel 5's case) and with two (kernel 6's). The
 # CPU/meta plain paths count in none of them.
 launches = 0
 bwd_launches = 0
@@ -287,7 +287,7 @@ def fused_cheb2_plain(x, blocks, pad_left: int, rows_out: int, w0, w1) -> torch.
     """Plain PyTorch version of the fused K=2 conv kernels, with the JAX
     kernels' numerics: kernels 1, 4, 5 and 6 (`_make_kernel`,
     `_make_kernel_v5`, `_v6`, `_v7`) compute the same function with the
-    same numerics, and so do `cheb2_fused.cu` and `cheb2_ring.cu`. The band
+    same numerics, and so do both kernels of `cheb2_fused.cu`. The band
     sum L~x in f32 (f64 for f64 inputs), rounded to x's dtype before the W1
     product; both products accumulated in f32 from x's dtype and summed;
     one rounding at the end. y [B, rows_out, F] for x [B, rows_in, C],
@@ -307,6 +307,19 @@ FUSED_BK = {torch.float32: 32, torch.bfloat16: 64}
 SMEM_MAX = 232448   # bytes of shared memory an H100 block may have
 
 
+def _product_tile(dtype: torch.dtype, F: int) -> tuple[int, int]:
+    """(BN, bytes of one A and one B stage) of csrc/cheb2_fused.cu's product
+    tile for F output columns: BN is the least of 128, 64, 32 (and 16 in
+    bf16) that is not narrower than F allows; f32 A rows are padded to BK +
+    4, bf16 A and B rows by 8 elements."""
+    BK = FUSED_BK[dtype]
+    if dtype == torch.float32:
+        BN = 128 if F > 64 else 64 if F > 32 else 32
+        return BN, 4 * (FUSED_BM * (BK + 4) + BK * BN)
+    BN = 128 if F > 64 else 64 if F > 32 else 32 if F > 16 else 16
+    return BN, 2 * (FUSED_BM * (BK + 8) + BK * (BN + 8))
+
+
 @functools.cache
 def fused_plan(dtype: torch.dtype, B: int, rows_out: int, C: int, F: int, G: int,
                width: int) -> dict | None:
@@ -319,23 +332,16 @@ def fused_plan(dtype: torch.dtype, B: int, rows_out: int, C: int, F: int, G: int
     ceil(F / BN) + column tile, block y = sample group. `smem` is the
     block's dynamic shared memory in bytes: the A and B stages (f32 A rows
     padded to BK + 4, bf16 A and B rows padded by 8 elements), the tile's
-    pack pairs (8 bytes each) and a count per row. BN is the least of 128,
-    64, 32 (and 16 in bf16) that is not narrower than F allows."""
+    pack pairs (8 bytes each) and a count per row. BN as `_product_tile`."""
     if G < 1 or B % G or G > FUSED_BM or B // G > 65535 or dtype not in FUSED_BK:
         return None
-    BK = FUSED_BK[dtype]
     rows = FUSED_BM // G
-    if dtype == torch.float32:
-        BN = 128 if F > 64 else 64 if F > 32 else 32
-        tiles = 4 * FUSED_STAGES * (FUSED_BM * (BK + 4) + BK * BN)
-    else:
-        BN = 128 if F > 64 else 64 if F > 32 else 32 if F > 16 else 16
-        tiles = 2 * FUSED_STAGES * (FUSED_BM * (BK + 8) + BK * (BN + 8))
-    smem = tiles + 8 * rows * width + 4 * rows
+    BN, stage = _product_tile(dtype, F)
+    smem = FUSED_STAGES * stage + 8 * rows * width + 4 * rows
     if smem > SMEM_MAX:
         return None
-    return dict(BM=FUSED_BM, BN=BN, BK=BK, stages=FUSED_STAGES, rows=rows, smem=smem,
-                grid=(-(-F // BN) * -(-rows_out // rows), B // G, 1))
+    return dict(BM=FUSED_BM, BN=BN, BK=FUSED_BK[dtype], stages=FUSED_STAGES, rows=rows,
+                smem=smem, grid=(-(-F // BN) * -(-rows_out // rows), B // G, 1))
 
 
 def fused_cheb2(
@@ -460,55 +466,73 @@ def cheb2_banded_v5(x: torch.Tensor, band_op, weight: torch.Tensor, group: int =
 def cheb2_banded_v6(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Tensor:
     """Rolling-ring fused K=2 Chebyshev conv (kernel 5, `cheb2_banded_pallas_v6`)
     on a square symmetric BandedOp with 128x128 blocks, natural or padded
-    layout: `ring_cheb2` with one row tile per step. x: [B, V, C];
-    weight: [2, C, F]."""
-    return _whole_conv(x, band_op, weight, functools.partial(ring_cheb2, rows_per_step=1))
+    layout: `ring_cheb2` with one row tile per block over the op's gather
+    pack. x: [B, V, C]; weight: [2, C, F]."""
+    return _whole_conv(x, band_op, weight,
+                       functools.partial(ring_cheb2, tiles=1, pack=band_op.pack))
 
 
 def cheb2_banded_v7(x: torch.Tensor, band_op, weight: torch.Tensor) -> torch.Tensor:
-    """The ring conv with two row tiles per step (kernel 6,
+    """The ring conv with two row tiles per block (kernel 6,
     `cheb2_banded_pallas_v7`), natural or padded layout. x: [B, V, C];
     weight: [2, C, F]."""
-    return _whole_conv(x, band_op, weight, functools.partial(ring_cheb2, rows_per_step=2))
+    return _whole_conv(x, band_op, weight,
+                       functools.partial(ring_cheb2, tiles=2, pack=band_op.pack))
 
 
-# --------------------------------------------------- the ring fused conv (kernels 5, 6)
+# ----------------------------------------------- the windowed fused conv (kernels 5, 6)
 
 
 @functools.cache
-def ring_plan(dtype: torch.dtype, B: int, C: int, S: int, T: int, rows_per_step: int) -> dict | None:
-    """How `csrc/cheb2_ring.cu` runs a conv of these sizes on the current
-    GPU: `cluster` blocks per sample and run (they split the C channels,
-    `channels` each), `run` output row tiles per cluster, `smem` bytes of
-    shared memory per block; None if no cluster of at most 16 blocks holds
-    its share of the ring in shared memory. Builds the kernel's library."""
-    from cape_tpu_torch.ops.kernels.build import cheb2_ring_lib
+def ring_plan(dtype: torch.dtype, B: int, rows_out: int, C: int, F: int, tiles: int,
+              window_rows: int, width: int) -> dict | None:
+    """How the windowed kernel of `csrc/cheb2_fused.cu` (`cheb2_window_kernel`)
+    tiles a fused conv of these sizes, for a gather pack `width` pairs wide
+    whose largest window of `tiles` row tiles is `window_rows` x rows; None
+    if it takes no such conv.
 
-    lib = cheb2_ring_lib()
-    out = (ctypes.c_int * 4)()
-    err = lib.cape_cheb2_ring_plan(_DTYPE_CODES[dtype], B, C, S, T, rows_per_step, out)
-    _raise_on("cheb2_ring plan", lib, err, lambda: f"B={B}, C={C}, S={S}, T={T}, R={rows_per_step}")
-    if out[0] == 0:
+    A block computes `tiles` consecutive 128-row output tiles of one sample
+    (256 threads a tile) by BN output columns (`_product_tile`). Its K loop
+    streams the C channels in chunks of BK; per chunk, shared memory holds
+    the window's rows (one stage), the L~x chunk of the block's rows (one
+    stage), w0's chunk and w1's (two stages). Block x = row group * ceil(F
+    / BN) + column tile, block y = sample. `smem` is the block's dynamic
+    shared memory in bytes: those stages, the pack pairs of its rows (8
+    bytes each) and a count per row."""
+    if (tiles not in WINDOW_TILES or dtype not in FUSED_BK or not 0 < B <= 65535
+            or window_rows < tiles * FUSED_BM):
         return None
-    return dict(cluster=out[0], channels=out[1], run=out[2], smem=out[3],
-                x_read_factor=(out[2] + S - 1) / out[2])
+    BK = FUSED_BK[dtype]
+    BN, stage = _product_tile(dtype, F)
+    el, lda = (4, BK + 4) if dtype == torch.float32 else (2, BK + 8)
+    a_stage = el * FUSED_BM * lda
+    rows = tiles * FUSED_BM
+    smem = (el * window_rows * lda + tiles * a_stage + 3 * (stage - a_stage)
+            + 8 * rows * width + 4 * rows)
+    if smem > SMEM_MAX:
+        return None
+    groups = -(-(-(-rows_out // FUSED_BM)) // tiles)
+    return dict(BM=FUSED_BM, BN=BN, BK=BK, tiles=tiles, window_rows=window_rows, smem=smem,
+                grid=(-(-F // BN) * groups, B, 1))
 
 
 def ring_cheb2(
     x: torch.Tensor, blocks: torch.Tensor, pad_left: int, rows_out: int,
-    w0: torch.Tensor, w1: torch.Tensor, rows_per_step: int,
+    w0: torch.Tensor, w1: torch.Tensor, tiles: int, pack: GatherPack | None = None,
 ) -> torch.Tensor:
     """y = x_c @ w0 + round(L~ x) @ w1 -> [B, rows_out, F] in one kernel, for
     x [B, rows_in, C], blocks [S, T, 128, 128] and w0, w1 [C, F], all of x's
-    dtype (float32 or bfloat16) and contiguous; `rows_per_step` 1 (v6) or 2
-    (v7) output row tiles per step of the ring. CUDA tensors launch
-    `csrc/cheb2_ring.cu`; CPU and meta tensors take fused_cheb2_plain after
-    the same checks. A shape whose ring no cluster of blocks holds in
-    shared memory raises ValueError. A launch counts in `ring_launches`
-    (one tile per step, kernel 5's case) or `ring2_launches` (kernel 6's)."""
+    dtype (float32 or bfloat16) and contiguous; `tiles` 1 (v6) or 2 (v7)
+    output row tiles per block. CUDA tensors launch the windowed kernel of
+    `csrc/cheb2_fused.cu` over `pack`, the gather pack of the blocks
+    (required there), tiled by `ring_plan`; CPU and meta tensors take
+    fused_cheb2_plain after the same checks. A pack given is checked
+    against the blocks on every device. A shape the plan refuses raises
+    ValueError. A launch counts in `ring_launches` (one tile per block,
+    kernel 5's case) or `ring2_launches` (kernel 6's)."""
     global ring_launches, ring2_launches
-    if rows_per_step not in (1, 2):
-        raise ValueError(f"ring_cheb2: rows_per_step={rows_per_step} (the kernel takes 1 or 2)")
+    if tiles not in WINDOW_TILES:
+        raise ValueError(f"ring_cheb2: tiles={tiles} (the kernel takes {WINDOW_TILES})")
     _check_tensors("ring_cheb2", x, blocks=blocks, w0=w0, w1=w1)
     if x.dim() != 3 or blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
         raise ValueError(
@@ -525,27 +549,35 @@ def ring_cheb2(
             f"ring_cheb2: rows_out={rows_out} must lie in (0, {T * RB}] and pad_left={pad_left} "
             f"in [0, {S * RB}) (the centre tile inside the window of S={S} tiles)"
         )
+    if pack is not None or x.device.type not in ("cpu", "meta"):
+        _check_pack("ring_cheb2", pack, blocks, pad_left)
     if x.device.type in ("cpu", "meta"):
         return fused_cheb2_plain(x, blocks, pad_left, rows_out, w0, w1)
-    _check_cuda("ring_cheb2", x, blocks=blocks, w0=w0, w1=w1)
-    if ring_plan(x.dtype, B, C, S, T, rows_per_step) is None:
+    if x.device.type != "cuda":   # the tensors were checked above
+        raise ValueError(f"ring_cheb2: no kernel for device {x.device}")
+    windows = pack.windows[tiles - 1]
+    if any(t.device != x.device for t in (pack.cols, pack.vals, windows)):
+        raise TypeError(f"ring_cheb2: the gather pack is on {pack.cols.device}, x on {x.device}")
+    plan = ring_plan(x.dtype, B, rows_out, C, Fo, tiles, pack.window_rows[tiles - 1], pack.width)
+    if plan is None:
         raise ValueError(
-            f"ring_cheb2: no cluster of at most 16 blocks holds its share of the ring "
-            f"({S + 2 * rows_per_step - 1} x tiles of {RB} rows by C={C} {x.dtype} channels), "
-            f"the sums and the staging buffers in the 232448 bytes of shared memory a block may have"
+            f"ring_cheb2: the windowed kernel takes no B={B}, tiles={tiles} with a window of "
+            f"{pack.window_rows[tiles - 1]} rows and a pack {pack.width} wide in the "
+            f"{SMEM_MAX} bytes of shared memory a block may have"
         )
-    from cape_tpu_torch.ops.kernels.build import cheb2_ring_lib
+    from cape_tpu_torch.ops.kernels.build import cheb2_fused_lib
 
-    lib = cheb2_ring_lib()
+    lib = cheb2_fused_lib()
     y = torch.empty((B, rows_out, Fo), dtype=x.dtype, device=x.device)
-    err = lib.cape_cheb2_ring(
-        x.data_ptr(), blocks.data_ptr(), w0.data_ptr(), w1.data_ptr(), y.data_ptr(),
-        _DTYPE_CODES[x.dtype], B, rows_in, C, Fo, S, T, pad_left, rows_out, rows_per_step,
-        _stream(x),
+    err = lib.cape_cheb2_window(
+        x.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(), windows.data_ptr(),
+        w0.data_ptr(), w1.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], B, rows_in, C, Fo,
+        pack.width, pad_left, rows_out, tiles, plan["BN"], plan["BK"], plan["window_rows"],
+        plan["smem"], *plan["grid"][:2], _stream(x),
     )
-    _raise_on("cheb2_ring", lib, err, lambda: f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
-              f"F={Fo}, R={rows_per_step}")
-    if rows_per_step == 1:
+    _raise_on("cheb2_window", lib, err, lambda: f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
+              f"F={Fo}, plan {plan}")
+    if tiles == 1:
         ring_launches += 1
     else:
         ring2_launches += 1

@@ -5,7 +5,7 @@
 Phases (any failure raises; the script then exits non-zero and prints no
 result line):
   1. device: a CUDA GPU must be present (there is no CPU path); TF32 off.
-  2. build: compile the three sources of csrc/ with nvcc, all at once;
+  2. build: compile the two sources of csrc/ with nvcc, both at once;
      log ptxas's registers and spills.
   3. kernel: the band-apply kernel (csrc/band_gather.cu over the op's
      gather pack) against its plain PyTorch version at every batch-32 and
@@ -54,13 +54,15 @@ result line):
      band-gather kernel) against its plain version on every banded lap,
      down, up and down_d op, B = 16 and 32, C = 64, f32 and bf16, with
      times taken as in phase 11 (and the library call in f32).
- 13. ring (after phase 12): the ring conv kernel (rows 5 and 6, one and two
-     row tiles per step) against its plain version at every FUSED_CONVS
-     shape, B = 16 and 32, f32 and bf16, natural and padded, with the fused
-     phase's limits; a shape whose ring no cluster holds must have C > 64
-     and must be refused with ValueError. Times at B = 32, padded, both
-     dtypes: both ring kernels, the plain version, the fused kernel at
-     group 1 and the v3 route. Then its main path, counts at 0 just before
+ 13. ring (after phase 12): the windowed conv kernel (rows 5 and 6,
+     csrc/cheb2_fused.cu's `cheb2_window_kernel`: one and two row tiles a
+     block, their x window staged in shared memory) against its plain
+     version at every FUSED_CONVS shape, B = 16 and 32, f32 and bf16,
+     natural and padded, with the fused phase's limits; its tile plan
+     (`ring_plan`) must take every case; a call without the pack must
+     raise. Times at B = 32, padded, both dtypes: both tilings, the plain
+     version, the fused kernel at group 1 and the v3 route; the B = 32
+     sums per dtype. Then its main path, counts at 0 just before
      and read just after: cheb2_banded_v6 and _v7 once each through
      autograd at [32, 6912, 64] -> 64, padded, f32, held to the plain
      conv's autograd (y, dx, dW within 1e-5 relative); one launch each in
@@ -97,8 +99,7 @@ PRESET = os.path.join(ROOT, "configs", "CAPE-affineconv_nz64_pose32_clotype32_ma
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_flagship.npz")
 GOLDEN_TRAIN = os.path.join(ROOT, "tests", "data", "torch_golden_train.npz")
 GATHER_SOURCE = "cape_tpu_torch/csrc/band_gather.cu"   # rows 2, 2b and 3
-FUSED_SOURCE = "cape_tpu_torch/csrc/cheb2_fused.cu"
-RING_SOURCE = "cape_tpu_torch/csrc/cheb2_ring.cu"
+FUSED_SOURCE = "cape_tpu_torch/csrc/cheb2_fused.cu"   # rows 1, 4, 5 and 6
 REPLACES = "cape_tpu/ops/pallas/cheb_kernel.py:168"  # _pallas_band_apply_v2
 REPLACES_BWD = "cape_tpu/ops/pallas/cheb_kernel.py:268"  # the apply in _v3_bwd
 REPLACES_V1 = "cape_tpu/ops/pallas/cheb_kernel.py:68"  # _pallas_cheb2_impl (kernel 1)
@@ -194,12 +195,11 @@ def build_phase():
     from cape_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    names = ("band_gather", "cheb2_fused", "cheb2_ring")
+    names = ("band_gather", "cheb2_fused")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
     build.band_gather_lib()
     build.cheb2_fused_lib()
-    build.cheb2_ring_lib()
     log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         ptxas = (lib.parent / f"{lib.stem}.log")
@@ -588,20 +588,22 @@ def bm_phase(ctx, smi):
 
 
 def ring_phase(ctx, smi):
-    """The ring conv kernel (rows 5 and 6: `ring_cheb2` with one and two row
-    tiles per step) against its plain version at every FUSED_CONVS shape,
-    B = 16 and 32, f32 and bf16, natural and padded, with the fused phase's
-    limits. A shape whose ring no cluster of blocks holds (`ring_plan` is
-    None) must have C > 64 and must be refused with ValueError; it is
-    recorded. At B = 32, padded, both dtypes: times (routes in turns) of
-    both ring kernels, the plain version, the fused kernel at group 1 and
-    the v3 route, and the bound. Then the main path of rows 5 and 6, with
-    every count at 0 just before and read just after: `cheb2_banded_v6` and
-    `cheb2_banded_v7` once each through autograd at RING_MAIN (padded, f32,
-    x's tail rows 7.0, the cotangent's tail zero), held to the plain conv's
-    autograd, y, dx and dW within 1e-5 * max|ref|; one launch each in the
-    forward, none in the backward. Returns the records, the refused shapes
-    and the main path's counts."""
+    """The windowed conv kernel (rows 5 and 6: `ring_cheb2` with one and two
+    row tiles a block) against its plain version at every FUSED_CONVS
+    shape, B = 16 and 32, f32 and bf16, natural and padded, with the fused
+    phase's limits. Its plan (`ring_plan`, at the op's largest window) must
+    take every case, and a CUDA call without the gather pack must raise.
+    Each record carries the plan's window rows, BN, shared-memory bytes and
+    grid, and the x rows the windows read over P (`x_read`). At B = 32,
+    padded, both dtypes: times (routes in turns) of both tilings, the plain
+    version, the fused kernel at group 1 and the v3 route, and the bound.
+    Then the main path of rows 5 and 6, with every count at 0 just before
+    and read just after: `cheb2_banded_v6` and `cheb2_banded_v7` once each
+    through autograd at RING_MAIN (padded, f32, x's tail rows 7.0, the
+    cotangent's tail zero), held to the plain conv's autograd, y, dx and dW
+    within 1e-5 * max|ref|; one launch each in the forward, none in the
+    backward. Returns the records and the main path's counts."""
+    from cape_tpu_torch.ops.banded import WINDOW_TILES
     from cape_tpu_torch.ops.cheb import cheb_conv
     from cape_tpu_torch.ops.kernels import cheb_kernel as ck
     from cape_tpu_torch.tools.perf_lab import time_routes
@@ -609,10 +611,19 @@ def ring_phase(ctx, smi):
     t_phase = time.perf_counter()
     laps = _laps(ctx)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    records, refused = [], []
+    records = []
+    op, x, w = laps[512], torch.zeros(2, 512, 8, device="cuda"), torch.zeros(8, 4, device="cuda")
+    try:
+        ck.ring_cheb2(x, op.blocks, op.pad_left, 512, w, w, 1)
+    except ValueError as e:
+        log(f"ring_cheb2 on a CUDA tensor without the gather pack raises: {e}")
+    else:
+        raise AssertionError("ring_cheb2 launched on a CUDA tensor without the gather pack")
     for P, convs in FUSED_CONVS.items():
         op = laps[P]
         S, T = op.blocks.shape[:2]
+        x_read = {t: (w[:, 1] - w[:, 0]).sum().item() / P
+                  for t, w in zip(WINDOW_TILES, op.pack.windows)}
         for C, F in convs:
             for B in (16, 32):
                 for dtype in (torch.float32, torch.bfloat16):
@@ -620,15 +631,14 @@ def ring_phase(ctx, smi):
                     blocks = op.blocks.to(dtype).contiguous()
                     w = (torch.randn((2, C, F), generator=gen, device="cuda") / math.sqrt(C)).to(dtype)
                     w0, w1 = w[0], w[1]
-                    plans = {R: ck.ring_plan(dtype, B, C, S, T, R) for R in (1, 2)}
-                    for R, plan in plans.items():
-                        if plan is None:
-                            refused.append(dict(dtype=name, B=B, P=P, C=C, F=F, R=R))
-                            if C <= 64:
-                                raise AssertionError(f"cheb2_ring refuses C={C} <= 64: {refused[-1]}")
                     worst, worst_ratio = 0.0, 0.0
                     for layout in ("natural", "padded"):
                         rows = P if layout == "padded" else op.n_rows
+                        plans = {t: ck.ring_plan(dtype, B, rows, C, F, t, op.pack.window_rows[t - 1],
+                                                 op.pack.width) for t in WINDOW_TILES}
+                        if None in plans.values():
+                            raise AssertionError(f"ring_plan refuses {name} B={B} x[{rows},{C}] F={F}: "
+                                                 f"{plans}")
                         x = torch.randn((B, rows, C), generator=gen, device="cuda").to(dtype)
                         ref = ck.fused_cheb2_plain(x, blocks, op.pad_left, rows, w0, w1)
                         scale = ref.float().abs().max().item()
@@ -639,53 +649,54 @@ def ring_phase(ctx, smi):
                             w1_l1 = w1.float().abs().sum(0).max().item()
                             limit = bf16_ulp(scale) + w1_l1 * bf16_ulp(lx.abs().max().item())
                             controls = bf16_controls(x, blocks, op.pad_left, rows, w0, w1)
-                        for R, plan in plans.items():
-                            if plan is None:
-                                try:
-                                    ck.ring_cheb2(x, blocks, op.pad_left, rows, w0, w1, R)
-                                except ValueError:
-                                    continue
-                                raise AssertionError(f"cheb2_ring ran a shape its plan refuses: "
-                                                     f"{refused[-1]}")
-                            y = ck.ring_cheb2(x, blocks, op.pad_left, rows, w0, w1, R)
+                        for t, plan in plans.items():
+                            y = ck.ring_cheb2(x, blocks, op.pad_left, rows, w0, w1, t, pack=op.pack)
                             err, _ = _err(y, ref)
-                            rec = dict(dtype=name, B=B, P=P, C=C, F=F, R=R, layout=layout, **plan,
-                                       max_abs_err=err, max_rel_err=err / scale, limit=limit)
+                            rec = dict(dtype=name, B=B, P=P, C=C, F=F, layout=layout,
+                                       x_read=x_read[t], **plan, max_abs_err=err,
+                                       max_rel_err=err / scale, limit=limit)
                             if controls is not None:
                                 rec["control_ratios"] = ratios = control_ratios(y, ref, controls)
                                 worst_ratio = max(worst_ratio, *ratios.values())
                             if not (err <= limit and worst_ratio <= CONTROL_SHARE):
-                                raise AssertionError(f"cheb2_ring disagrees with its plain version: {rec}")
+                                raise AssertionError(f"cheb2_window disagrees with its plain version: {rec}")
                             worst = max(worst, err / scale)
                             records.append(rec)
                     if B != 32:
                         continue
-                    # padded layout, last x: times of both ring kernels and their yardsticks
+                    # padded layout, last x: times of both tilings and their yardsticks
                     op_d = dataclasses.replace(op, blocks=blocks)
-                    routes = {"plain_ms": lambda: ck.fused_cheb2_plain(x, blocks, op.pad_left, P, w0, w1),
-                              "g1_ms": lambda: ck.fused_cheb2(x, blocks, op.pad_left, P, w0, w1, 1,
-                                                              pack=op.pack),
-                              "v3_ms": lambda: ck.cheb2_banded_v3(x, op_d, w)}
-                    for R, key in ((1, "ms"), (2, "r2_ms")):
-                        if plans[R] is not None:
-                            routes[key] = functools.partial(ck.ring_cheb2, x, blocks, op.pad_left, P,
-                                                            w0, w1, R)
+                    ring = functools.partial(ck.ring_cheb2, x, blocks, op.pad_left, P, w0, w1,
+                                             pack=op.pack)
                     with torch.no_grad():
-                        tm = time_routes(routes)
+                        tm = time_routes({
+                            "ms": lambda: ring(1),
+                            "r2_ms": lambda: ring(2),
+                            "plain_ms": lambda: ck.fused_cheb2_plain(x, blocks, op.pad_left, P, w0, w1),
+                            "g1_ms": lambda: ck.fused_cheb2(x, blocks, op.pad_left, P, w0, w1, 1,
+                                                            pack=op.pack),
+                            "v3_ms": lambda: ck.cheb2_banded_v3(x, op_d, w),
+                        })
                     records.append(dict(dtype=name, B=B, P=P, C=C, F=F, layout="padded", **tm,
                                         **conv_bound(blocks, B, P, P, C, F, dtype)))
-                    ring = " ".join(f"R={R} {tm[k]:.4f}" for R, k in ((1, "ms"), (2, "r2_ms")) if k in tm)
-                    plan_s = "; ".join(f"R={R} cluster {p['cluster']} x {p['channels']} channels, run "
-                                       f"{p['run']} tiles (x read {p['x_read_factor']:.3f}x), "
-                                       f"{p['smem']} B" if p else f"R={R} refused"
-                                       for R, p in plans.items())
+                    plan_s = "; ".join(f"tiles {t}: window {p['window_rows']} rows (x read "
+                                       f"{x_read[t]:.2f} P), BN {p['BN']}, {p['smem']} B, "
+                                       f"grid {p['grid'][:2]}" for t, p in plans.items())
                     ratio = f", mean err/control {worst_ratio:.3f}" if dtype == torch.bfloat16 else ""
                     log(f"ring {name} x[{B},{P},{C}] F={F} blocks[{S},{T}]: worst rel err {worst:.2e}"
-                        f"{ratio} over R=1,2 x natural,padded (B=16 too); {plan_s}; [{smi}] "
-                        f"ms: ring {ring}, plain {tm['plain_ms']:.4f}, G=1 {tm['g1_ms']:.4f}, "
-                        f"v3 route {tm['v3_ms']:.4f}, bound {records[-1]['bound_ms']:.4f} "
-                        f"({records[-1]['bound_by']})")
-    log(f"ring: refused {len(refused)} cases: {json.dumps(refused)}")
+                        f"{ratio} over tiles 1,2 x natural,padded (B=16 too); {plan_s}; [{smi}] "
+                        f"ms: tiles 1 {tm['ms']:.4f}, tiles 2 {tm['r2_ms']:.4f}, plain "
+                        f"{tm['plain_ms']:.4f}, G=1 {tm['g1_ms']:.4f}, v3 route {tm['v3_ms']:.4f}, "
+                        f"bound {records[-1]['bound_ms']:.4f} ({records[-1]['bound_by']})")
+    for name in ("float32", "bfloat16"):
+        timed = [r for r in records if "ms" in r and r["dtype"] == name]
+        sums = {k: sum(r[k] for r in timed) for k in ("ms", "r2_ms", "g1_ms", "plain_ms", "v3_ms")}
+        bnd = summed_bound(timed)
+        log(f"ring {name} B=32 padded, summed over {len(timed)} shapes [{smi}]: "
+            f"tiles 1 {sums['ms']:.4f} ms, tiles 2 {sums['r2_ms']:.4f}, fused G=1 "
+            f"{sums['g1_ms']:.4f}, plain {sums['plain_ms']:.4f}, v3 route {sums['v3_ms']:.4f}, "
+            f"bound {bnd['bound_ms']:.4f} ({bnd['bound_by']}); bound / kernel: tiles 1 "
+            f"{bnd['bound_ms'] / sums['ms']:.1%}, tiles 2 {bnd['bound_ms'] / sums['r2_ms']:.1%}")
 
     # ---- the main path of rows 5 and 6: every count at 0 just before, read just after
     B, P, C, F = RING_MAIN
@@ -722,7 +733,7 @@ def ring_phase(ctx, smi):
             or not only(after, "ring_launches", "ring2_launches")):
         raise AssertionError(f"ring main path: launches {counts}, expected one of each ring "
                              "kernel in the forwards and none in the backwards")
-    return records, refused, counts
+    return records, counts
 
 
 def lab_phase(smi):
@@ -1062,7 +1073,7 @@ def main():
     bwd_f32 = [r for r in bwd_records if r["dtype"] == "float32"]
     fused_records = fused_phase(ctx, smi)
     bm_records = bm_phase(ctx, smi)
-    ring_records, ring_refused, ring_counts = ring_phase(ctx, smi)
+    ring_records, ring_counts = ring_phase(ctx, smi)
 
     model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
     n_params = sum(p.numel() for p in model.parameters())
@@ -1141,8 +1152,7 @@ def main():
     with open(RECORDS, "w") as f:
         json.dump({"device": smi, "band_apply": records, "band_apply_bwd": bwd_records,
                    "cheb2_fused": fused_records, "band_apply_bm": bm_records,
-                   "cheb2_ring": {"records": ring_records, "refused": ring_refused,
-                                  "main_path_launches": ring_counts},
+                   "cheb2_window": {"records": ring_records, "main_path_launches": ring_counts},
                    "lab": lab_lines, "lab_launches": lab_counts}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
@@ -1180,9 +1190,9 @@ def main():
     # rows 1, 4, 3, 5 and 6: launches from the lab (rows 1, 3, 4) and from
     # the ring phase's main path (rows 5, 6); the worst f32 error over their
     # phases; times and bounds summed over the batch-32 f32 cases (every
-    # FUSED_CONVS shape, padded, that the kernel ran; every banded op). No
-    # single library call computes the fused conv: rows 1 and 4 carry the
-    # summed v3 route (band-apply kernel plus two matmuls) as their yardstick.
+    # FUSED_CONVS shape, padded; every banded op). No single library call
+    # computes the fused conv: rows 1, 4, 5 and 6 carry the summed v3 route
+    # (band-apply kernel plus two matmuls) as their yardstick.
     fused_err = lambda g: max(r["max_abs_err"] for r in fused_records
                               if r["dtype"] == "float32" and "max_abs_err" in r and (r["G"] == 1) == g)
     fused_t = [r for r in fused_records if "ms" in r and r["dtype"] == "float32" and r["B"] == 32]
@@ -1190,15 +1200,15 @@ def main():
     bm_f32 = [r for r in bm_records if r["dtype"] == "float32"]
     bm_t = [r for r in bm_f32 if r["B"] == 32]
 
-    def ring_row(name, replaces, R, key):
+    def ring_row(name, replaces, tiles, key):
         timed = [r for r in ring_records if key in r and r["dtype"] == "float32" and r["B"] == 32]
         return {
-            "name": name, "route": "cuda", "source": RING_SOURCE, "replaces": replaces,
-            "launches": ring_counts["cheb2_ring" if R == 1 else "cheb2_ring2"],
+            "name": name, "route": "cuda", "source": FUSED_SOURCE, "replaces": replaces,
+            "launches": ring_counts["cheb2_ring" if tiles == 1 else "cheb2_ring2"],
             "max_abs_err": max(r["max_abs_err"] for r in ring_records
-                               if r.get("R") == R and r["dtype"] == "float32"),
+                               if r.get("tiles") == tiles and r["dtype"] == "float32"),
             "ms": sum(r[key] for r in timed), "plain_ms": sum(r["plain_ms"] for r in timed),
-            **summed_bound(timed), "library_ms": None,
+            **summed_bound(timed), "library_ms": None, "v3_ms": sum(r["v3_ms"] for r in timed),
         }
 
     summary += [{
@@ -1219,8 +1229,8 @@ def main():
         "max_abs_err": fused_err(False),
         "ms": sum(r["ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
         **summed_bound(fused_t), "library_ms": None, "v3_ms": fused_v3_ms,
-    }, ring_row("cheb2_ring (v6, R=1)", REPLACES_V6, 1, "ms"),
-        ring_row("cheb2_ring (v7, R=2)", REPLACES_V7, 2, "r2_ms")]
+    }, ring_row("cheb2_window (v6, tiles 1)", REPLACES_V6, 1, "ms"),
+        ring_row("cheb2_window (v7, tiles 2)", REPLACES_V7, 2, "r2_ms")]
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.2f} s in all")
     log(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
