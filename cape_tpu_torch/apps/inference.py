@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cape_tpu_torch.core import prng
 from cape_tpu_torch.models.cape import CAPE
 from cape_tpu_torch.ops.sparse import GraphContext
 
@@ -135,13 +136,15 @@ class InferenceEngine(BatchedCalls):
 
     def autoencode(self, disp, pose, clo, rng: int | None = None, sample: bool = False):
         """Full reconstruction. sample=False uses the posterior mean;
-        sample=True draws eps ~ N(0, 1) from a CPU torch.Generator seeded
-        with the integer `rng` (one draw of all rows, so the result does not
-        depend on the batch size; the bits differ from the JAX engine's)."""
+        sample=True draws z = mu + sigma * eps with the JAX engine's
+        row-keyed eps: row i from normal(fold_in(PRNGKey(seed), i))
+        (`core.prng.normal_rows`), so one integer seed `rng` gives the JAX
+        engine's draw, whatever the batch size. Like the JAX engine, the
+        seed is taken modulo 2**32."""
         z_mean, z_logvar, y, y2 = self.encode(disp, pose, clo)
         if sample:
-            gen = torch.Generator().manual_seed(0 if rng is None else int(rng))
-            eps = torch.randn(z_mean.shape, generator=gen).numpy()
+            seed = 0 if rng is None else int(rng) % (1 << 32)
+            eps = prng.normal_rows(seed, len(z_mean), z_mean.shape[1])
             (z,) = self._batched(
                 self._count("sample", self.model.sample_z), len(z_mean), z_mean, z_logvar, eps
             )

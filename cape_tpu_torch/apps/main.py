@@ -1,23 +1,38 @@
 """CLI entry point and the model set-up shared by the entry points.
 
     python -m cape_tpu_torch.apps.main --config configs/<preset>.yaml \\
-        --mode train --name <run> [--batch_size 32] [--num_epochs N] [--device cpu]
+        --mode train|test|demo --name <run> [--batch_size 32] [--num_epochs N] \\
+        [--workdir results] [--device cpu]
 
-Counterpart of `cape_tpu.apps.main`. `--mode train` builds the graph
-context, the model (parameters from torch.Generator seed 0), the data and
-the Trainer, fits, and evaluates the test split. The data is the packed
-dataset under data/datasets/<dataset> if it exists, else a synthetic
-stand-in, with a loud notice. It runs on the GPU; without one it raises
-unless `--device cpu` asks for the CPU. Not ported: `--mode test|demo` and the
-DemoSuite the JAX package runs after training (demo meshes, OBJ files).
+Counterpart of `cape_tpu.apps.main`. Every mode prints the architecture
+table (`models.summary.describe`) first.
+  * train: the graph context, the model (parameters from torch.Generator
+    seed 0), the data and the Trainer; fit, then, as the JAX package, the
+    DemoSuite: test_model on the test split and run() (demo samples, OBJ
+    files under <workdir>/<name>/).
+  * test: restore the newest checkpoint of <workdir>/<name> (written by
+    either package) and run DemoSuite.test_model.
+  * demo: restore it and run DemoSuite.run() (sample_vary_pose and
+    sample_vary_clotype). The nz18 release preset, for example:
+      python -m cape_tpu_torch.apps.main \\
+          --config configs/CAPE-affineconv_nz18_pose24_clotype8_male.yaml \\
+          --name <run> --mode demo --batch_size 32
+    (at its default batch 16 no conv reaches the CUDA kernel; see ops.cheb).
+The data is the packed dataset under data/datasets/<dataset> if it
+exists, else a synthetic stand-in, with a loud notice. It runs on the
+GPU; without one it raises unless `--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 
 import torch
+
+from cape_tpu_torch.apps.demos import DemoSuite
+from cape_tpu_torch.apps.inference import InferenceEngine
 
 from cape_tpu_torch.meshops import assets
 from cape_tpu_torch.meshops.pyramid import load_or_build as load_or_build_pyramid
@@ -25,6 +40,7 @@ from cape_tpu_torch.core.bridge import load_jax_checkpoint
 from cape_tpu_torch.core.config import CAPEConfig, parse_cli
 from cape_tpu_torch.data.loader import BodyData
 from cape_tpu_torch.data.synthetic import synthetic_bodydata
+from cape_tpu_torch.models import summary
 from cape_tpu_torch.models.cape import CAPE, DTYPES
 from cape_tpu_torch.ops.sparse import build_graph_context
 from cape_tpu_torch.train.checkpoint import latest_checkpoint
@@ -91,31 +107,56 @@ def require_device(device) -> None:
         )
 
 
+@dataclasses.dataclass
+class RunResult:
+    """What run() did: the Trainer (train mode), the DemoSuite (its engine
+    counts the device calls) and test_model's metrics (train and test)."""
+
+    demos: DemoSuite
+    trainer: Trainer | None = None
+    test: dict | None = None
+
+
 def run(cfg: CAPEConfig, workdir: str = "results", device="cuda",
-        data: BodyData | None = None) -> Trainer:
-    """Train, then evaluate the test split; returns the Trainer. `data`
+        data: BodyData | None = None) -> RunResult:
+    """One mode of the CLI (cfg.mode: train, test or demo). `data`
     replaces the dataset that load_bodydata would pick."""
     cfg = resolve_config(cfg)
+    if cfg.mode not in ("train", "test", "demo"):
+        raise ValueError(f"unknown mode {cfg.mode!r} (use train, test or demo)")
     if cfg.mode != "train":
-        raise NotImplementedError(
-            f"--mode {cfg.mode} is not ported to cape_tpu_torch yet: it runs the "
-            "JAX package's DemoSuite (test-set meshes, demo samples, OBJ export)"
-        )
+        ckpt_dir = os.path.join(workdir, cfg.name, "checkpoints")
+        if latest_checkpoint(ckpt_dir) is None:  # before anything is built
+            raise FileNotFoundError(
+                f"--mode {cfg.mode} restores a trained run: no checkpoint under {ckpt_dir}"
+            )
     require_device(device)
     model = CAPE(cfg)
     ctx = build_context(cfg, device=device)
-    model.init_params(torch.Generator().manual_seed(0), ctx).to(device)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"{cfg.name}: {n_params} parameters on {device}", flush=True)
-    trainer = Trainer(cfg, model, ctx, load_bodydata(cfg) if data is None else data,
-                      workdir=workdir)
-    _, t_step = trainer.fit()
-    print(f"training done: {t_step * 1000:.1f} ms/step (host clock, eval included)", flush=True)
-    test = trainer.evaluate("test")
-    print("test " + " ".join(f"{k}={v:.6g}" for k, v in test.items()), flush=True)
-    print("not ported: the post-training DemoSuite of the JAX package "
-          "(demo samples, OBJ export); skipped", flush=True)
-    return trainer
+    print(summary.describe(model, ctx), flush=True)
+    trainer = None
+    if cfg.mode == "train":
+        model.init_params(torch.Generator().manual_seed(0), ctx).to(device)
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{cfg.name}: {n_params} parameters on {device}", flush=True)
+        data = load_bodydata(cfg) if data is None else data
+        trainer = Trainer(cfg, model, ctx, data, workdir=workdir)
+        _, t_step = trainer.fit()
+        print(f"training done: {t_step * 1000:.1f} ms/step (host clock, eval included)",
+              flush=True)
+    else:
+        restore_params(cfg, model, ctx, workdir)
+    engine = InferenceEngine(model, ctx, cfg.batch_size, device=device)
+    demos = DemoSuite(
+        engine, cfg.name, cfg.dataset, cfg.gender, cfg.demo_n_sample,
+        cfg.save_obj, cfg.smpl_model_folder, workdir, cfg.seed, vis=cfg.vis_demo,
+    )
+    result = RunResult(demos, trainer)
+    if cfg.mode in ("train", "test"):
+        result.test = demos.test_model(load_bodydata(cfg) if data is None else data)
+    if cfg.mode in ("train", "demo"):
+        demos.run()
+    return result
 
 
 def main(argv=None):

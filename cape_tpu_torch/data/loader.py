@@ -15,22 +15,7 @@ import os
 
 import numpy as np
 
-# joints whose rotation affects clothing (cape_tpu.smpl.joints)
-CLOTH_JOINT_IDX = [1, 2, 3, 4, 5, 6, 9, 12, 13, 14, 16, 17, 18, 19]
-
-
-def filter_cloth_pose(pose_vec: np.ndarray) -> np.ndarray:
-    """[N, 72] axis-angle or [N, 216] rot-matrix pose -> the 14
-    clothing-joint slice ([N, 42] / [N, 126])."""
-    pose_vec = np.asarray(pose_vec)
-    n, dim = pose_vec.shape[0], pose_vec.shape[-1]
-    if dim == 72:
-        per_joint = 3
-    elif dim == 216:
-        per_joint = 9
-    else:
-        raise ValueError(f"expected 72- or 216-dim pose, got {dim}")
-    return pose_vec.reshape(n, -1, per_joint)[:, CLOTH_JOINT_IDX, :].reshape(n, -1)
+from cape_tpu_torch.smpl.joints import filter_cloth_pose
 
 
 class BodyData:

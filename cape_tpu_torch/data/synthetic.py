@@ -3,8 +3,7 @@ the packed dataset is not on disk.
 
 Counterpart of `cape_tpu.data.synthetic` (the same draws from the same
 numpy generator, so the same arrays): per-vertex displacement fields that
-are a smooth low-rank function of pose and clothing type, plus noise. The
-Rodrigues map is numpy here (`cape_tpu.smpl.rodrigues` imports jax).
+are a smooth low-rank function of pose and clothing type, plus noise.
 """
 
 from __future__ import annotations
@@ -12,32 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from cape_tpu_torch.data.loader import BodyData
-
-
-def _rodrigues(axis_angle: np.ndarray) -> np.ndarray:
-    """axis-angle [..., 3] -> rotation matrices [..., 3, 3] (exp map), with
-    the numpy arithmetic of cape_tpu.smpl.rodrigues."""
-    theta = np.sqrt(np.sum(axis_angle**2, axis=-1, keepdims=True) + 1e-16)
-    k = axis_angle / theta
-    kx, ky, kz = k[..., 0], k[..., 1], k[..., 2]
-    zeros = np.zeros_like(kx)
-    K = np.stack(
-        [
-            np.stack([zeros, -kz, ky], axis=-1),
-            np.stack([kz, zeros, -kx], axis=-1),
-            np.stack([-ky, kx, zeros], axis=-1),
-        ],
-        axis=-2,
-    )
-    theta = theta[..., None]
-    eye = np.broadcast_to(np.eye(3, dtype=axis_angle.dtype), K.shape)
-    return eye + np.sin(theta) * K + (1.0 - np.cos(theta)) * (K @ K)
-
-
-def pose_to_rotmats(pose: np.ndarray) -> np.ndarray:
-    """[N, J*3] axis-angle pose -> [N, J*9] flat rotation matrices."""
-    pose = pose.reshape(pose.shape[0], -1, 3)
-    return _rodrigues(pose).reshape(pose.shape[0], -1)
+from cape_tpu_torch.smpl.rodrigues import pose_to_rotmats
 
 
 def synthetic_bodydata(

@@ -38,7 +38,32 @@ result line):
      1e-4 relative, step-2 updates per leaf, see hold_updates).
   9. train time: both routes in turns, 6 rounds of 2 steps.
  10. train mode: apps.main.run (synthetic n_train=64, 2 epochs of one
-     step); restore_params reads its checkpoint bit-equal, and decodes.
+     step), which ends with the DemoSuite (test_model, then 6 demo poses
+     and 4 clothing types); the launches count its device calls too;
+     restore_params reads its checkpoint bit-equal, and decodes.
+ 15. microbatch (after phase 10): the server's default mode, dynamic
+     micro-batching, on the flagship (f32, batch 32, seed-0 parameters):
+     64 single-mesh /sample requests (distinct seeds, and one seed
+     repeated 8 times) and 16 deterministic /reconstruct requests from 16
+     threads, counts at 0 just before and read just after. Every response
+     within 1e-5 * max|ref| of the same request answered by a
+     micro_batch=False server on the same engine; the repeated seed
+     bit-equal; decode_calls < decode_requests; band_apply launches exactly
+     7 per encode and decode device call, no other kernel; /metrics has the
+     cape_microbatch_* counters, /viewer answers 200 with the template
+     embedded; drain() returns True. Then request p50/p95 under this load
+     in both modes, in turns, 3 rounds (host clock, per request), with the
+     device lock's busy share (host seconds inside the engine's calls over
+     the wall time).
+ 16. demo (after phase 15): the nz18 release preset at batch 32 (f32,
+     seed-0 parameters, synthetic data), held to
+     tests/data/torch_golden_demo.npz: apps.main.run in --mode test
+     (test_model's errors within 1e-4 relative, its first two
+     reconstructions within 1e-4 * max|ref|) and --mode demo (OBJ files),
+     counts at 0 just before and read just after each, 7 launches per
+     encode and decode call; a fresh DemoSuite's GMM-prior draw (z within
+     1e-6, bodies within 1e-4 * max|ref|); /sample prior="gmm" through the
+     server (z bit-equal, meshes within 1e-4 * max|ref|).
  11. fused (after phase 3): the fused conv kernel (rows 1 and 4,
      csrc/cheb2_fused.cu: one streamed GEMM per block tile whose L~x
      operand is gathered from the op's gather pack through shared memory,
@@ -98,6 +123,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PRESET = os.path.join(ROOT, "configs", "CAPE-affineconv_nz64_pose32_clotype32_male.yaml")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_flagship.npz")
 GOLDEN_TRAIN = os.path.join(ROOT, "tests", "data", "torch_golden_train.npz")
+PRESET_NZ18 = os.path.join(ROOT, "configs", "CAPE-affineconv_nz18_pose24_clotype8_male.yaml")
+GOLDEN_DEMO = os.path.join(ROOT, "tests", "data", "torch_golden_demo.npz")
+# no SMPL model file: the demo suites export unposed meshes
+NO_SMPL = os.path.join(ROOT, "build", "no_smpl_model")
 GATHER_SOURCE = "cape_tpu_torch/csrc/band_gather.cu"   # rows 2, 2b and 3
 FUSED_SOURCE = "cape_tpu_torch/csrc/cheb2_fused.cu"   # rows 1, 4, 5 and 6
 REPLACES = "cape_tpu/ops/pallas/cheb_kernel.py:168"  # _pallas_band_apply_v2
@@ -776,40 +805,16 @@ def lab_phase(smi):
     return lines, counts
 
 
-class Client:
-    def __init__(self, base: str):
-        self.base = base
-
-    def get(self, path):
-        with urllib.request.urlopen(self.base + path, timeout=300) as resp:
-            assert resp.status == 200, (path, resp.status)
-            return json.loads(resp.read())
-
-    def post(self, path, body, npz=True):
-        if npz:
-            buf = io.BytesIO()
-            np.savez(buf, **body)
-            data, ctype = buf.getvalue(), "application/x-npz"
-        else:
-            data = json.dumps({k: np.asarray(v).tolist() for k, v in body.items()}).encode()
-            ctype = "application/json"
-        req = urllib.request.Request(self.base + path, data=data, headers={"Content-Type": ctype})
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            assert resp.status == 200, (path, resp.status)
-            raw = resp.read()
-        if npz:
-            with np.load(io.BytesIO(raw)) as z:
-                return {k: z[k] for k in z}
-        return {k: np.asarray(v, np.float32) for k, v in json.loads(raw).items()}
-
-
-def start_server(engine):
+def start_server(engine, **kw):
+    """Serve `engine` on 127.0.0.1:0 from a thread (serve()'s options in
+    kw); returns (httpd, thread, model server, CapeClient)."""
+    from cape_tpu_torch.apps.client import CapeClient
     from cape_tpu_torch.apps.server import serve
 
-    httpd, ms = serve(engine, "127.0.0.1", 0)
+    httpd, ms = serve(engine, "127.0.0.1", 0, **kw)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
-    return httpd, thread, ms, Client(f"http://127.0.0.1:{httpd.server_address[1]}")
+    return httpd, thread, ms, CapeClient(f"http://127.0.0.1:{httpd.server_address[1]}")
 
 
 def stop_server(httpd, thread):
@@ -826,19 +831,22 @@ def check_mesh(name, disp, n):
 
 
 def requests(client, pose, clo):
-    """The request plan of the serve phase; returns the responses."""
-    out = {"sample": client.post("/sample", {"pose": pose[:1], "clo": clo[:1], "n": 40, "seed": 0})}
-    check_mesh("/sample", out["sample"]["disp"], 40)
-    meshes = out["sample"]["disp"][:3]
-    out["encode"] = client.post("/encode", {"disp": meshes, "pose": pose[:3], "clo": clo[:3]},
-                                npz=False)
-    if not np.isfinite(out["encode"]["z_mean"]).all():
+    """The request plan of the serve phase (npz wire, /encode on JSON);
+    returns the responses."""
+    from cape_tpu_torch.apps.client import CapeClient
+
+    disp, z = client.sample(pose[:1], clo[:1], n=40, seed=0)
+    out = {"sample": {"disp": disp, "z": z}}
+    check_mesh("/sample", disp, 40)
+    meshes = disp[:3]
+    z_mean, z_logvar, y, y2 = CapeClient(client.base_url, wire="json").encode(
+        meshes, pose[:3], clo[:3])
+    out["encode"] = {"z_mean": z_mean, "z_logvar": z_logvar, "y": y, "y2": y2}
+    if not np.isfinite(z_mean).all():
         raise AssertionError("/encode: non-finite z_mean")
-    out["decode"] = client.post("/decode", {"z": out["encode"]["z_mean"], "pose": pose[:3],
-                                            "clo": clo[:3]})
+    out["decode"] = {"disp": client.decode(z_mean, pose[:3], clo[:3])}
     check_mesh("/decode", out["decode"]["disp"], 3)
-    out["reconstruct"] = client.post("/reconstruct", {"disp": meshes, "pose": pose[:3],
-                                                      "clo": clo[:3]})
+    out["reconstruct"] = {"disp": client.reconstruct(meshes, pose[:3], clo[:3])}
     check_mesh("/reconstruct", out["reconstruct"]["disp"], 3)
     return out
 
@@ -1002,32 +1010,44 @@ def train_phase(cfg, ctx, ctx_plain, smi):
 def run_phase(cfg):
     """The train mode through apps.main.run on synthetic data (n_train=64:
     32 train rows after the val split, one step per epoch, two epochs),
-    with the kernel counts set to 0 just before and read just after; its
-    checkpoint restored bit-equal through restore_params; one decode from
-    the restored model. Returns the (forward, backward) launch counts."""
+    which ends, as the JAX package's, with the DemoSuite (test_model on
+    the 32 test rows, then run(): 6 demo poses and 4 clothing types, 5
+    samples each), with the kernel counts set to 0 just before and read
+    just after; its checkpoint restored bit-equal through restore_params;
+    one decode from the restored model. Returns the (forward, backward)
+    launch counts."""
     from cape_tpu_torch.apps.main import restore_params, run
     from cape_tpu_torch.data.synthetic import synthetic_bodydata
     from cape_tpu_torch.models.cape import CAPE
 
-    run_cfg = cfg.replace(name="chip_smoke_train", mode="train", num_epochs=2)
+    run_cfg = cfg.replace(name="chip_smoke_train", mode="train", num_epochs=2,
+                          smpl_model_folder=NO_SMPL)
     data = synthetic_bodydata(n_train=64, n_test=32, num_verts=6890, seed=cfg.seed)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_run_")
     try:
         # ---- the train main path: every count at 0 just before, read just after
         zero_counts()
         t0 = time.perf_counter()
-        trainer = run(run_cfg, workdir, device="cuda", data=data)
+        result = run(run_cfg, workdir, device="cuda", data=data)
         torch.cuda.synchronize()
         after = read_counts()
+        trainer, calls = result.trainer, dict(result.demos.engine.calls)
         counts = (after["launches"], after["bwd_launches"])
         steps = trainer.state.step
-        evals = run_cfg.num_epochs + 1   # one val batch per epoch, one test batch
-        want = (FWD_PER_STEP * steps + FWD_PER_EVAL * evals, BWD_PER_STEP * steps)
+        evals = run_cfg.num_epochs   # one val batch per epoch
+        # the DemoSuite: test_model's encode and decode call, run()'s ten decodes
+        if calls != {"embed": 2, "encode": 1, "decode": 11, "sample": 1}:
+            raise AssertionError(f"run(): DemoSuite device calls {calls}")
+        demo = 7 * (calls["encode"] + calls["decode"])
+        want = (FWD_PER_STEP * steps + FWD_PER_EVAL * evals + demo, BWD_PER_STEP * steps)
         log(f"train mode run(): {time.perf_counter() - t0:.2f} s, {steps} steps, "
-            f"{evals} eval batches, band_apply launches (forward, backward) {counts}; "
-            f"all counts {json.dumps(after)}")
+            f"{evals} eval batches, DemoSuite device calls {calls}, band_apply launches "
+            f"(forward, backward) {counts}; all counts {json.dumps(after)}; test_model "
+            + json.dumps(result.test))
         if steps != 2 or counts != want or not only(after, "launches", "bwd_launches"):
             raise AssertionError(f"run(): {steps} steps, launches {counts}, expected {want}")
+        if not all(math.isfinite(v) for v in result.test.values()):
+            raise AssertionError(f"run(): test_model {result.test}")
         restored = restore_params(run_cfg, CAPE(run_cfg), trainer.ctx, workdir)
         trained = trainer.model.state_dict()
         for k, v in restored.state_dict().items():
@@ -1046,6 +1066,255 @@ def run_phase(cfg):
         held_to("decode, restored vs trained model", disp.cpu().numpy(), ref.cpu().numpy(),
                 rel=1e-6)
         return counts
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def quantiles(ms: list) -> dict:
+    """Nearest-rank p50 and p95 (the server's own rule) of latencies in ms."""
+    lat = sorted(ms)
+    q = lambda p: lat[max(0, math.ceil(p * len(lat)) - 1)]
+    return {"p50_ms": q(0.50), "p95_ms": q(0.95), "n": len(lat)}
+
+
+def microbatch_load(client, pose, clo, meshes):
+    """The microbatch phase's load from 16 threads: 64 single-mesh /sample
+    requests (seeds 0..63, except every 8th, which repeats seed 1000 with
+    the same conditions) and 16 deterministic /reconstruct requests, mixed.
+    Returns [(kind, index, response, latency ms)] in submission order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(job):
+        kind, i = job
+        t0 = time.perf_counter()
+        if kind == "sample":
+            rep = i % 8 == 0
+            row = 0 if rep else i % len(pose)
+            out = client.sample(pose[row:row + 1], clo[row:row + 1], n=1,
+                                seed=1000 if rep else i)[0]
+        else:
+            out = client.reconstruct(meshes[i:i + 1], pose[i:i + 1], clo[i:i + 1])
+        return kind, i, out, 1000.0 * (time.perf_counter() - t0)
+
+    jobs = [("sample", i) for i in range(64)]
+    for j in range(16):   # one reconstruct after every four samples
+        jobs.insert(5 * j + 4, ("reconstruct", j))
+    with ThreadPoolExecutor(16) as pool:
+        return list(pool.map(one, jobs))
+
+
+def microbatch_phase(model, ctx, smi):
+    """The server's default mode (dynamic micro-batching) on the flagship,
+    f32, batch 32: the microbatch load with every count at 0 just before and
+    read just after; every response held to the same request answered by a
+    micro_batch=False server on the same engine (1e-5 * max|ref|), the
+    repeated seed bit-equal, decode_calls < decode_requests, 7 band_apply
+    launches per encode and decode device call and no other kernel;
+    /metrics and /viewer; drain(). Then request latency p50/p95 under the
+    load in both modes, in turns, 3 rounds. Returns (launches, timings)."""
+    from cape_tpu_torch.apps.inference import InferenceEngine
+
+    engine = InferenceEngine(model, ctx, 32)
+    # the host seconds inside the engine's device calls, all of which hold
+    # the server's device lock (each ends in a copy to the host, which
+    # waits for the device): busy / wall is the lock's busy share
+    busy = [0.0]
+
+    def timed(fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                busy[0] += time.perf_counter() - t0
+
+        return call
+
+    for name in ("encode_only_condition", "encode", "decode"):
+        setattr(engine, name, timed(getattr(engine, name)))
+    golden = np.load(GOLDEN)
+    pose, clo = golden["pose"], golden["clo"]
+    meshes = np.asarray(golden["disp"][:1].repeat(16, 0)
+                        + 0.01 * np.random.default_rng(5).standard_normal((16, 6890, 3)),
+                        np.float32)
+    httpd, thread, ms, client = start_server(engine)
+    ref_httpd, ref_thread, ref_ms, ref_client = start_server(engine, micro_batch=False)
+    try:
+        ms.warmup()
+        # ---- the micro-batched main path: every count at 0 just before, read just after
+        zero_counts()
+        engine.calls = dict.fromkeys(engine.calls, 0)
+        busy[0] = 0.0
+        t0 = time.perf_counter()
+        got = microbatch_load(client, pose, clo, meshes)
+        torch.cuda.synchronize()
+        counts, calls, mb = read_counts(), dict(engine.calls), ms.batcher_counts()
+        wall = time.perf_counter() - t0
+        log(f"microbatch main path: {wall:.3f} s for {len(got)} requests, device lock busy "
+            f"{busy[0]:.3f} s ({busy[0] / wall:.1%}), device calls {calls}, batchers "
+            f"{json.dumps(mb)}; all counts {json.dumps(counts)}")
+        if not mb["decode_calls"] < mb["decode_requests"] == 80:
+            raise AssertionError(f"the decode batcher did not coalesce: {mb}")
+        if (counts["launches"] != 7 * (calls["encode"] + calls["decode"])
+                or not only(counts, "launches")):
+            raise AssertionError(f"{counts} for {calls}: expected 7 band_apply launches per "
+                                 "encode/decode device call and no other kernel")
+        if calls["decode"] != mb["decode_calls"] or calls["encode"] != mb["encode_calls"]:
+            raise AssertionError(f"engine calls {calls} are not the batchers' {mb}")
+        with urllib.request.urlopen(client.base_url + "/metrics", timeout=60) as resp:
+            metrics = resp.read().decode()
+        with urllib.request.urlopen(client.base_url + "/viewer", timeout=60) as resp:
+            page, ctype = resp.read(), resp.headers["Content-Type"]
+        for line in ('cape_microbatch_requests_total{stage="decode"} 80',
+                     f'cape_microbatch_device_calls_total{{stage="decode"}} {mb["decode_calls"]}'):
+            if line not in metrics:
+                raise AssertionError(f"/metrics lacks {line!r}:\n{metrics}")
+        if not ctype.startswith("text/html") or b'"template"' not in page:
+            raise AssertionError(f"/viewer: {ctype}, {len(page)} bytes, no template")
+        log(f"/metrics {len(metrics.splitlines())} lines; /viewer {len(page)} bytes ({ctype})")
+        if not ms.drain(timeout=10.0):
+            raise AssertionError("drain() found requests in flight after the load")
+
+        # ---- each response against the per-request server's
+        ref = microbatch_load(ref_client, pose, clo, meshes)
+        worst = 0.0
+        for (kind, i, out, _), (_, _, want, _) in zip(got, ref):
+            check_mesh(f"/{kind} {i}", out, 1)
+            err = float(np.abs(out - want).max())
+            worst = max(worst, err / float(np.abs(want).max()))
+            if not err <= 1e-5 * float(np.abs(want).max()):
+                raise AssertionError(f"/{kind} {i}: coalesced vs per-request {err:.3e}")
+        rep = [out for kind, i, out, _ in got if kind == "sample" and i % 8 == 0]
+        if not all(np.array_equal(r, rep[0]) for r in rep):
+            raise AssertionError("the repeated seed gave different meshes")
+        log(f"microbatch: {len(got)} responses within {worst:.3e} * max|ref| of the "
+            f"per-request server's; seed 1000 bit-equal in {len(rep)} responses")
+
+        # ---- request latency under the load, both modes in turns
+        times = {"micro_batch": [], "per_request": []}
+        for r in range(3):
+            order = (("micro_batch", client), ("per_request", ref_client))
+            for mode, c in order if r % 2 == 0 else order[::-1]:
+                busy[0] = 0.0
+                t0 = time.perf_counter()
+                lat = [t for *_, t in microbatch_load(c, pose, clo, meshes)]
+                wall = time.perf_counter() - t0
+                times[mode].append({**quantiles(lat), "wall_s": wall, "busy_s": busy[0],
+                                    "busy_share": busy[0] / wall})
+        timing = {}
+        for mode, rounds in times.items():
+            timing[mode] = {k: float(np.median([rd[k] for rd in rounds]))
+                            for k in ("p50_ms", "p95_ms", "wall_s", "busy_share")}
+            log(f"request latency under the load, {mode} [{smi}]: p50 "
+                f"{timing[mode]['p50_ms']:.3f} ms, p95 {timing[mode]['p95_ms']:.3f} ms, "
+                f"{timing[mode]['wall_s']:.3f} s for 80 requests, device lock busy "
+                f"{timing[mode]['busy_share']:.1%} (median of 3 rounds; "
+                f"rounds {json.dumps(rounds)})")
+        return counts["launches"], timing
+    finally:
+        stop_server(httpd, thread)
+        stop_server(ref_httpd, ref_thread)
+
+
+def demo_phase(smi):
+    """The nz18 release preset at batch 32, f32, seed-0 parameters, held to
+    tests/data/torch_golden_demo.npz: apps.main.run in --mode test (its
+    errors within 1e-4 relative, its first two reconstructions within 1e-4
+    * max|ref|) and --mode demo (OBJ files), each with the counts at 0 just
+    before and read just after; a fresh DemoSuite's sample_gmm_prior (z
+    within 1e-6, bodies within 1e-4 * max|ref|); and /sample prior="gmm"
+    through the server (z bit-equal, meshes within 1e-4 * max|ref|).
+    Returns (launches, seconds of each mode)."""
+    from cape_tpu_torch.apps.demos import DemoSuite
+    from cape_tpu_torch.apps.main import build_context, run
+    from cape_tpu_torch.core import prng
+    from cape_tpu_torch.core.config import load_config
+    from cape_tpu_torch.data.synthetic import synthetic_bodydata
+    from cape_tpu_torch.meshops.obj_io import load_obj
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.models.gmm import GMM
+    from cape_tpu_torch.train.checkpoint import save_checkpoint
+
+    golden = np.load(GOLDEN_DEMO)
+    cfg = load_config(PRESET_NZ18, batch_size=32, compute_dtype="float32",
+                      name="chip_smoke_nz18", smpl_model_folder=NO_SMPL)
+    t0 = time.perf_counter()
+    ctx = build_context(cfg, device="cuda")
+    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx)
+    sd = model.state_dict()
+    sums = np.array([sd[k].double().sum().item() for k in sorted(sd)])
+    if sorted(sd) != list(golden["param_keys"]) or not np.allclose(
+            sums, golden["param_sums"], rtol=1e-6, atol=1e-6):
+        raise AssertionError("nz18 parameters from seed 0 differ from the demo golden's")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    launches, seconds = 0, {}
+    try:
+        save_checkpoint(os.path.join(workdir, cfg.name, "checkpoints"), model, step=0)
+        data = synthetic_bodydata(n_train=int(golden["n_train"]), n_test=int(golden["n_test"]),
+                                  num_verts=6890, seed=int(golden["seed"]))
+        log(f"demo phase set-up (nz18 context, checkpoint, data): "
+            f"{time.perf_counter() - t0:.2f} s")
+        results = {}
+        for mode in ("test", "demo"):
+            # ---- the mode's main path: every count at 0 just before, read just after
+            zero_counts()
+            t0 = time.perf_counter()
+            result = run(cfg.replace(mode=mode), workdir, device="cuda",
+                         data=data if mode == "test" else None)
+            torch.cuda.synchronize()
+            seconds[mode] = time.perf_counter() - t0
+            counts, calls = read_counts(), dict(result.demos.engine.calls)
+            per_call = counts["launches"] / max(1, calls["encode"] + calls["decode"])
+            log(f"--mode {mode} [{smi}]: {seconds[mode]:.3f} s (host clock, restore included), "
+                f"device calls {calls}, band_apply launches {counts['launches']} "
+                f"({per_call:g} per encode/decode call); all counts {json.dumps(counts)}")
+            if (counts["launches"] != 7 * (calls["encode"] + calls["decode"])
+                    or not only(counts, "launches")):
+                raise AssertionError(f"--mode {mode}: {counts} for {calls}")
+            launches += counts["launches"]
+            results[mode] = result
+        got = results["test"].test
+        held_metrics("test_model vs JAX golden",
+                     {k: got[k] for k in golden["error_names"]},
+                     dict(zip(golden["error_names"], golden["errors"])))
+        run_dir = os.path.join(workdir, cfg.name)
+        obj_dir = os.path.join(run_dir, f"test_reconstruction_objs_{cfg.dataset}")
+        recon = np.stack([load_obj(os.path.join(obj_dir, f"recon_{i:04d}.obj"))[0]
+                          for i in range(len(golden["recon"]))])
+        held_to("test_model reconstructions vs JAX golden", recon, golden["recon"])
+        n_objs = {d: len(os.listdir(os.path.join(run_dir, d)))
+                  for d in ("sample_vary_pose", "sample_vary_clotype")}
+        if n_objs != {"sample_vary_pose": 6 * cfg.demo_n_sample,
+                      "sample_vary_clotype": 4 * cfg.demo_n_sample}:
+            raise AssertionError(f"--mode demo wrote {n_objs}")
+        for d in n_objs:
+            v, _ = load_obj(os.path.join(run_dir, d, sorted(os.listdir(os.path.join(run_dir, d)))[0]))
+            check_mesh(f"--mode demo {d}", v[None], 1)
+
+        # ---- the GMM prior: a fresh suite's draw, and the server's
+        engine = results["demo"].demos.engine
+        gmm = GMM.load_pretrained()
+        key = int(np.random.default_rng(cfg.seed).integers(1 << 30))
+        z = gmm.sample(prng.PRNGKey(key), len(golden["gmm_z"]))
+        if key != int(golden["gmm_key"]):
+            raise AssertionError(f"the suite's first key {key} is not the golden's")
+        held_to("GMM.sample latents vs JAX golden", z, golden["gmm_z"],
+                rel=1e-6 / float(np.abs(golden["gmm_z"]).max()))
+        suite = DemoSuite(engine, cfg.name, cfg.dataset, cfg.gender, cfg.demo_n_sample, False,
+                          NO_SMPL, workdir, cfg.seed)
+        held_to("sample_gmm_prior bodies vs JAX golden",
+                suite.sample_gmm_prior(n=len(golden["gmm_z"])), golden["gmm_full"])
+        httpd, thread, ms, client = start_server(engine, gmm=gmm)
+        try:
+            disp, z = client.sample(golden["srv_pose"], golden["srv_clo"], n=len(golden["srv_z"]),
+                                    prior="gmm", seed=int(golden["srv_seed"]))
+        finally:
+            stop_server(httpd, thread)
+        if not np.array_equal(z, golden["srv_z"]):
+            raise AssertionError("/sample prior=gmm: z differs from the JAX server's draw")
+        held_to("/sample prior=gmm meshes vs JAX golden", disp[: len(golden["srv_disp"])],
+                golden["srv_disp"])
+        return launches, seconds
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1079,7 +1348,7 @@ def main():
     n_params = sum(p.numel() for p in model.parameters())
     engine = InferenceEngine(model, ctx, cfg.batch_size)
     httpd, thread, ms, client = start_server(engine)
-    log(f"serving {cfg.name} ({n_params} parameters) on {client.base}; "
+    log(f"serving {cfg.name} ({n_params} parameters) on {client.base_url}; "
         f"warmup {ms.warmup():.2f} s")
     golden = np.load(GOLDEN)
     pose, clo = golden["pose"], golden["clo"]
@@ -1088,9 +1357,9 @@ def main():
     zero_counts()
     engine.calls = dict.fromkeys(engine.calls, 0)
     t0 = time.perf_counter()
-    health = client.get("/health")
+    health = client.health()
     served = requests(client, pose, clo)
-    stats = client.get("/stats")
+    stats = client.stats()
     serve_counts = read_counts()
     launches = serve_counts["launches"]
     calls = dict(engine.calls)
@@ -1144,8 +1413,13 @@ def main():
     # ---- training: the step on both routes, then the train mode
     train_times = train_phase(cfg, ctx, ctx_plain, smi)
     run_fwd, run_bwd = run_phase(cfg)
+    mb_launches, mb_times = microbatch_phase(model, ctx, smi)
+    demo_launches, demo_seconds = demo_phase(smi)
     log(f"main paths: serve {launches} band_apply launches; train mode {run_fwd} "
-        f"band_apply and {run_bwd} band_apply_bwd launches")
+        f"band_apply and {run_bwd} band_apply_bwd launches; microbatch {mb_launches} and "
+        f"demo {demo_launches} band_apply launches")
+    log(f"serving latency under load [{smi}]: " + json.dumps(mb_times))
+    log(f"DemoSuite modes, nz18 at batch 32 [{smi}]: " + json.dumps(demo_seconds))
     log(f"train step times [{smi}]: " + json.dumps(train_times))
     lab_lines, lab_counts = lab_phase(smi)
     os.makedirs(os.path.dirname(RECORDS), exist_ok=True)
@@ -1153,7 +1427,8 @@ def main():
         json.dump({"device": smi, "band_apply": records, "band_apply_bwd": bwd_records,
                    "cheb2_fused": fused_records, "band_apply_bm": bm_records,
                    "cheb2_window": {"records": ring_records, "main_path_launches": ring_counts},
-                   "lab": lab_lines, "lab_launches": lab_counts}, f)
+                   "lab": lab_lines, "lab_launches": lab_counts,
+                   "microbatch_latency": mb_times, "demo_mode_seconds": demo_seconds}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -1161,8 +1436,8 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES,
-        # the serve and train-mode main paths' forward launches
-        "launches": launches + run_fwd,
+        # the forward launches of the serve, train-mode, microbatch and demo main paths
+        "launches": launches + run_fwd + mb_launches + demo_launches,
         # worst f32 error over the batch-32 shapes of serving and training;
         # times and bounds summed over the seven band applies of one
         # batch-32 decode

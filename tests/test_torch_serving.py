@@ -133,9 +133,14 @@ def test_engine_matches_jax_engine(engines):
 
 
 def test_sampled_autoencode_is_seeded_and_batch_independent(engines):
-    _, eng = engines
+    """sample=True draws the JAX engine's row-keyed eps (row i from
+    fold_in(PRNGKey(seed), i)): the port's sampled reconstruction equals
+    the JAX engine's for the same integer seed, repeats bit for bit, moves
+    with the seed, and does not depend on the engine's batch size."""
+    jeng, eng = engines
     disp, pose, clo = _inputs(5, eng.ctx.level_sizes[0], 3)
     a = eng.autoencode(disp, pose, clo, rng=7, sample=True)
+    _close(a, jeng.autoencode(disp, pose, clo, rng=7, sample=True), "JAX engine, seed 7")
     np.testing.assert_array_equal(a, eng.autoencode(disp, pose, clo, rng=7, sample=True))
     assert not np.allclose(a, eng.autoencode(disp, pose, clo, rng=8, sample=True))
     # the same draw whatever the engine's batch size (here 3 calls of 2 rows)
@@ -204,20 +209,27 @@ def test_server_health_and_sample_match_jax(engines, server):
 
 
 def test_server_errors_and_unported_routes(server):
+    """Client errors are 400s: prior='gmm' on a server without a prior, a
+    wrong pose width. GET /metrics answers the Prometheus text, and GET
+    /viewer answers 404 for a mesh that is not the SMPL template (the
+    icosphere here); the errors are counted in /stats."""
     status, out = _post(server, "/sample", {"pose": [[0.0] * 126], "clo": [[1, 0, 0, 0]],
                                             "prior": "gmm"})
-    assert status == 501 and "not ported" in out["error"]
+    assert status == 400 and "no GMM prior" in out["error"]
     status, out = _post(server, "/sample", {"pose": [[0.0] * 3], "clo": [[1, 0, 0, 0]]})
     assert status == 400 and "pose" in out["error"]
-    for path in ("/metrics", "/viewer"):
-        try:
-            urllib.request.urlopen(server + path, timeout=30)
-            raise AssertionError(f"{path} answered 200")
-        except urllib.error.HTTPError as e:
-            assert e.code == 501
+    with urllib.request.urlopen(server + "/metrics", timeout=30) as resp:
+        assert resp.status == 200 and resp.headers["Content-Type"].startswith("text/plain")
+        assert 'cape_model_info{model="serving_test"' in resp.read().decode()
+    try:
+        urllib.request.urlopen(server + "/viewer", timeout=30)
+        raise AssertionError("/viewer answered 200")
+    except urllib.error.HTTPError as e:
+        assert e.code == 404 and "no mesh topology" in json.loads(e.read())["error"]
     with urllib.request.urlopen(server + "/stats", timeout=30) as resp:
         stats = json.loads(resp.read())
     assert stats["POST /sample"]["errors"] >= 2
+    assert stats["(micro_batch)"]["decode_requests"] >= 1
 
 
 def test_restore_params_from_jax_checkpoint(engines, tmp_path):
@@ -254,6 +266,10 @@ def test_import_loads_no_jax_flax_or_yaml():
         "names = [m.name for m in pkgutil.walk_packages(cape_tpu_torch.__path__, 'cape_tpu_torch.')]\n"
         "assert 'cape_tpu_torch.train.loop' in names and 'cape_tpu_torch.losses' in names, names\n"
         "assert 'cape_tpu_torch.meshops.assets' in names, names\n"
+        "new = ['core.prng', 'apps.client', 'apps.demos', 'apps.simple_demo', 'models.gmm',\n"
+        "       'models.summary', 'meshops.viewer', 'meshops.render', 'smpl.joints',\n"
+        "       'smpl.rodrigues', 'smpl.lbs', 'tools.fit_latent_gmm']\n"
+        "assert not [n for n in new if 'cape_tpu_torch.' + n not in names], names\n"
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', 'yaml', 'cape_tpu')\n"
         "             or m.startswith('cape_tpu.')))"
@@ -322,13 +338,19 @@ def test_server_cli_serves_and_stops_on_sigterm():
 
 
 def test_unported_server_options_raise(engines):
-    """Micro-batching, --artifact and --data_parallel are refused with
-    NotImplementedError naming what is missing (no silent substitute)."""
+    """Micro-batching is the default (and micro_batch=False the opt-out);
+    --artifact and --data_parallel are refused with NotImplementedError
+    naming what is missing (no silent substitute)."""
     from cape_tpu_torch.apps.server import main, serve
 
     _, eng = engines
-    with pytest.raises(NotImplementedError, match="micro-batching"):
-        serve(eng, "127.0.0.1", 0, micro_batch=True)
+    httpd, ms = serve(eng, "127.0.0.1", 0)
+    httpd.server_close()
+    assert ms.batcher_counts() == {f"{s}_{k}": 0 for s in ("embed", "encode", "decode")
+                                   for k in ("calls", "requests")}
+    httpd, ms = serve(eng, "127.0.0.1", 0, micro_batch=False)
+    httpd.server_close()
+    assert ms.batcher_counts() is None
     with pytest.raises(NotImplementedError, match="--artifact"):
         main(["--artifact", "model.capex"])
     with pytest.raises(NotImplementedError, match="--data_parallel"):

@@ -297,14 +297,21 @@ def test_fit_fails_fast_on_non_finite_loss(setup, tmp_path):
 
 
 @pytest.mark.parametrize("change", [{"mode": "test"}, {"mode": "demo"}])
-def test_unported_modes_raise(change, tmp_path):
-    """--mode test|demo refuse with NotImplementedError, before any work."""
-    from cape_tpu_torch.apps.main import main, run
+def test_unported_modes_raise(change, tmp_path, monkeypatch):
+    """--mode test|demo restore a trained run: without a checkpoint under
+    <workdir>/<name>/checkpoints, run() and the CLI raise FileNotFoundError
+    naming the mode and the directory, before anything is built.
+    (tests/test_torch_demos.py runs both modes with a checkpoint.)"""
+    from cape_tpu_torch.apps import main as app_main
 
-    with pytest.raises(NotImplementedError, match="DemoSuite"):
-        run(CAPEConfig(**TINY, **change), str(tmp_path))
-    with pytest.raises(NotImplementedError, match=f"--mode {change['mode']}"):
-        main(["--name", "x", "--mode", change["mode"], "--device", "cpu"])
+    built = []
+    monkeypatch.setattr(app_main, "build_context", lambda *a, **k: built.append(1))
+    with pytest.raises(FileNotFoundError, match=f"--mode {change['mode']} restores"):
+        app_main.run(CAPEConfig(**TINY, **change), str(tmp_path))
+    with pytest.raises(FileNotFoundError, match=f"--mode {change['mode']}.*checkpoints"):
+        app_main.main(["--name", "x", "--mode", change["mode"], "--device", "cpu",
+                       "--workdir", str(tmp_path)])
+    assert not built
 
 
 @pytest.mark.parametrize(
