@@ -11,7 +11,8 @@ numpy/scipy only).
 Layout:
   core/      config dataclass and preset reader, initializers, JAX bridge
   meshops/   mesh precompute: pyramids, orderings, the shipped assets
-  ops/       banded operators, graph context, Chebyshev conv and its kernels
+  ops/       banded, ELL and dense operators, graph context, group norm,
+             Chebyshev conv and its kernels
   csrc/      CUDA C++ sources, built at first use by ops/kernels/build.py
   models/    the CAPE model (condition nets, encoder, decoder, discriminator)
   losses.py  the training losses

@@ -56,7 +56,7 @@ def build_context(cfg: CAPEConfig, device="cpu"):
         assets.smpl_edges(), verts, loss_mask=loss_mask,
         mode=cfg.op_mode, dtype=DTYPES[cfg.compute_dtype],
         padded=cfg.padded_layout and cfg.op_mode == "banded",
-        use_pallas=cfg.use_pallas, device=device,
+        use_pallas=cfg.use_pallas, build_fused=cfg.fuse_decoder, device=device,
     )
 
 

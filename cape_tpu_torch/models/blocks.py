@@ -1,9 +1,18 @@
-"""Network building blocks of the serving path.
+"""Network building blocks: conv/pool stacks and residual variants.
 
-Counterpart of `cape_tpu.models.blocks` for the flagship family: the plain
-encoder conv block (with and without folded conditions), the 1x1 graph
-conv and the affine decoder block with folded conditions. Functional
-(init, apply) pairs over explicit parameter dicts, as in JAX.
+Counterpart of `cape_tpu.models.blocks`, form for form. Functional (init,
+apply) pairs over explicit parameter dicts, as in JAX:
+
+  conv_block   - conv -> bias + act -> pool          (the reference's cnp)
+  deconv_block - unpool -> conv -> bias + act        (udn)
+  res_block    - encoder residual block
+  cmr_block    - GraphCMR group-norm decoder residual block
+  affine_block - affine decoder residual block
+
+The folded forms take the conditions symbolically (ops.cheb
+cheb_conv_folded) instead of a per-vertex broadcast concat; the fused forms
+also compose the unpool into the conv (ops.cheb cheb_conv_up). Both are
+exact and parameter-compatible with the concat forms.
 """
 
 from __future__ import annotations
@@ -11,9 +20,11 @@ from __future__ import annotations
 import torch
 
 from cape_tpu_torch.core.params import conv_bias, conv_weight
-from cape_tpu_torch.ops.cheb import cheb_conv, cheb_conv_folded
+from cape_tpu_torch.ops.cheb import _project, cheb_conv, cheb_conv_folded, cheb_conv_up_folded
+from cape_tpu_torch.ops.norm import group_norm
 
 
+# ---------------------------------------------------------------- plain conv
 def conv_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -> dict:
     return {"w": conv_weight(generator, K, fin, fout), "b": conv_bias(fout)}
 
@@ -25,6 +36,12 @@ def conv_block_apply(p: dict, x, lap, down, act):
     return down(x)
 
 
+def deconv_block_apply(p: dict, x, lap, up, act):
+    """unpool -> conv -> bias + activation."""
+    x = cheb_conv(up(x), lap, p["w"])
+    return act(x + p["b"].to(x.dtype))
+
+
 def conv1x1_init(generator: torch.Generator, fin: int, fout: int) -> dict:
     """K=1 'pointwise' graph conv; no bias."""
     return {"w": conv_weight(generator, 1, fin, fout)}
@@ -34,6 +51,61 @@ def conv1x1_apply(p: dict, x, lap):
     return cheb_conv(x, lap, p["w"])
 
 
+# ------------------------------------------------------------- encoder resid
+def res_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -> dict:
+    p = {
+        "conv1": {"w": conv_weight(generator, K, fin, fout), "b": conv_bias(fout)},
+        "conv2": {"w": conv_weight(generator, K, fout, fout), "b": conv_bias(fout)},
+    }
+    if fin != fout:
+        p["proj"] = conv1x1_init(generator, fin, fout)
+    return p
+
+
+def res_block_apply(p: dict, x_in, lap, down, act):
+    """conv -> act -> conv, plus the (projected) skip -> act -> pool."""
+    x = cheb_conv(x_in, lap, p["conv1"]["w"])
+    x = act(x + p["conv1"]["b"].to(x.dtype))
+    x = cheb_conv(x, lap, p["conv2"]["w"])
+    skip = conv1x1_apply(p["proj"], x_in, lap) if "proj" in p else x_in
+    x = act(x + skip + p["conv2"]["b"].to(x.dtype))
+    return down(x)
+
+
+# ---------------------------------------------------------- CMR decoder resid
+def cmr_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -> dict:
+    half = fout // 2
+    norm = lambda c: {"gamma": torch.ones((c,)), "beta": torch.zeros((c,))}
+    p = {
+        "gn0": norm(fin),
+        "lin1": conv1x1_init(generator, fin, half),
+        "gn1": norm(half),
+        "conv": {"w": conv_weight(generator, K, half, half)},
+        "gn2": norm(half),
+        "lin2": conv1x1_init(generator, half, fout),
+    }
+    if fin != fout:
+        p["proj"] = conv1x1_init(generator, fin, fout)
+    return p
+
+
+def cmr_block_apply(p: dict, x_in, lap, up, n_valid: int | None = None):
+    """unpool -> [GN -> relu -> 1x1 -> GN -> relu -> cheb -> GN -> relu -> 1x1]
+    plus the (projected) skip (GraphCMR, 1905.03244). n_valid: the natural
+    vertex count of the unpooled level in the padded layout, where the
+    group-norm statistics run over valid rows only (ops.norm)."""
+    xu = up(x_in)
+    x = torch.relu(group_norm(xu, p["gn0"]["gamma"], p["gn0"]["beta"], n_valid=n_valid))
+    x = conv1x1_apply(p["lin1"], x, lap)
+    x = torch.relu(group_norm(x, p["gn1"]["gamma"], p["gn1"]["beta"], n_valid=n_valid))
+    x = cheb_conv(x, lap, p["conv"]["w"])
+    x = torch.relu(group_norm(x, p["gn2"]["gamma"], p["gn2"]["beta"], n_valid=n_valid))
+    x = conv1x1_apply(p["lin2"], x, lap)
+    skip = conv1x1_apply(p["proj"], xu, lap) if "proj" in p else xu
+    return x + skip
+
+
+# -------------------------------------------------------- affine decoder resid
 def affine_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -> dict:
     """Outputs fout//2 channels, as the reference's affine block does."""
     half = fout // 2
@@ -43,6 +115,19 @@ def affine_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -
     }
 
 
+def affine_block_apply(p: dict, x_in, lap, up):
+    """unpool -> [cheb -> relu] + a parallel 1x1 'affine' branch, summed."""
+    x = up(x_in)
+    return torch.relu(cheb_conv(x, lap, p["conv"]["w"])) + conv1x1_apply(p["affine"], x, lap)
+
+
+# ---------------------------------------------------- condition-folded forms
+def _up_seed(x: torch.Tensor, up) -> torch.Tensor:
+    """u = U @ 1: the per-vertex coefficient of a condition concatenated
+    before the unpool."""
+    return up(torch.ones((x.shape[-2], 1), dtype=x.dtype, device=x.device))
+
+
 def conv_block_folded_apply(p: dict, x, conds, lap, down, act):
     """conv block on concat([x, conds...]) with folded condition channels."""
     x = cheb_conv_folded(x, conds, lap, p["w"])
@@ -50,12 +135,75 @@ def conv_block_folded_apply(p: dict, x, conds, lap, down, act):
     return down(x)
 
 
+def deconv_block_folded_apply(p: dict, x, conds, lap, up, act):
+    """deconv block whose input was concat([x, conds...]) before the
+    unpool; the condition seed is commuted through it as u = U @ 1."""
+    x = cheb_conv_folded(up(x), conds, lap, p["w"], cond_seed=_up_seed(x, up))
+    return act(x + p["b"].to(x.dtype))
+
+
 def affine_block_folded_apply(p: dict, x, conds, lap, up):
-    """unpool -> [cheb -> relu] + parallel 1x1 'affine' branch, summed, on
-    concat([x, conds...]) taken before the unpool: the condition seed is
-    commuted through the upsampling as u = U @ 1."""
-    xu = up(x)
-    seed = up(torch.ones((x.shape[-2], 1), dtype=x.dtype, device=x.device))
+    """The affine block with folded conditions (see deconv_block_folded_apply)."""
+    xu, seed = up(x), _up_seed(x, up)
     gc = torch.relu(cheb_conv_folded(xu, conds, lap, p["conv"]["w"], cond_seed=seed))
     af = cheb_conv_folded(xu, conds, lap, p["affine"]["w"], cond_seed=seed)
     return gc + af
+
+
+def deconv_block_fused_apply(p: dict, x, conds, up, lap_up, act):
+    """The deconv block with folded conditions and the unpool composed into
+    the conv (ops.cheb cheb_conv_up_folded): the projections run at the
+    coarse vertex count and the unpooled input never exists."""
+    x = cheb_conv_up_folded(x, conds, up, lap_up, p["w"])
+    return act(x + p["b"].to(x.dtype))
+
+
+def affine_block_fused_apply(p: dict, x, conds, up, lap_up):
+    """The affine block with folded conditions and the unpool composed into
+    both branches: one coarse-level product projects [conv W0 | affine Wa],
+    one U apply carries both branches' k=0 terms, and L~U carries the
+    conv's k=1 term."""
+    wc = p["conv"]["w"].to(x.dtype)         # [2, fin_total, half]
+    wa = p["affine"]["w"].to(x.dtype)       # [1, fin_total, half]
+    fx = x.shape[-1]
+    half = wc.shape[-1]
+    u = up(_project(x, torch.cat([wc[0, :fx], wa[0, :fx]], dim=-1)))   # [.., Vf, 2*half]
+    gc_pre = u[..., :half] + lap_up(_project(x, wc[1, :fx]))
+    af = u[..., half:]
+
+    ones = torch.ones((x.shape[-2], 1), dtype=x.dtype, device=x.device)
+    shape = (1,) * (gc_pre.dim() - 2) + (gc_pre.shape[-2], 1)
+    s0 = up(ones).reshape(shape)
+    s1 = lap_up(ones).reshape(shape)
+    off = fx
+    for c in conds:
+        dim = c.shape[-1]
+        c = c.to(x.dtype)
+        gc_pre = gc_pre + s0 * (c @ wc[0, off : off + dim])[..., None, :]
+        gc_pre = gc_pre + s1 * (c @ wc[1, off : off + dim])[..., None, :]
+        af = af + s0 * (c @ wa[0, off : off + dim])[..., None, :]
+        off += dim
+    if off != wc.shape[1]:
+        raise ValueError(f"condition channels {off} != weight rows {wc.shape[1]}")
+    return torch.relu(gc_pre) + af
+
+
+def res_block_folded_apply(p: dict, x_in, conds, lap, down, act):
+    """The encoder res block whose input is concat([x, conds...])."""
+    x = cheb_conv_folded(x_in, conds, lap, p["conv1"]["w"])
+    x = act(x + p["conv1"]["b"].to(x.dtype))
+    x = cheb_conv(x, lap, p["conv2"]["w"])
+    if "proj" in p:
+        skip = cheb_conv_folded(x_in, conds, lap, p["proj"]["w"])
+    else:
+        skip = concat_conditions(x_in, *conds)
+    x = act(x + skip + p["conv2"]["b"].to(x.dtype))
+    return down(x)
+
+
+def concat_conditions(x: torch.Tensor, *conds: torch.Tensor) -> torch.Tensor:
+    """Broadcast condition vectors [B, C] across the vertices and concat
+    them on the channel axis."""
+    B, V, _ = x.shape
+    parts = [x] + [c[:, None, :].expand(B, V, c.shape[-1]).to(x.dtype) for c in conds]
+    return torch.cat(parts, dim=-1)

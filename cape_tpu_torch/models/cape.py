@@ -1,11 +1,13 @@
 """The CAPE model: condition nets, encoder, decoder and discriminator.
 
-Counterpart of `cape_tpu.models.cape` for the flagship family (plain conv
-encoder, affine decoder, folded conditions, banded operators). Parameters
-live in the module under the JAX package's key paths
-(`generator.decoder.layer0.conv.w`), so `core.bridge` maps a JAX param tree
-or checkpoint onto `load_state_dict` without renaming. They are trainable;
-serving runs under `torch.inference_mode()` (apps.inference).
+Counterpart of `cape_tpu.models.cape`, every family it builds: plain or
+residual encoder blocks; plain deconv, GraphCMR group-norm or affine
+decoder blocks; folded or materialized conditions; the fused (L~@U)
+decoder; recomputed block activations (remat); banded, ELL and dense
+operators. Parameters live in the module under the JAX package's key paths
+(`generator.decoder.layer0.gn0.gamma`), so `core.bridge` maps a JAX param
+tree or checkpoint onto `load_state_dict` without renaming. They are
+trainable; serving runs under `torch.inference_mode()` (apps.inference).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cape_tpu_torch.core.config import CAPEConfig
 from cape_tpu_torch.core.params import (
@@ -46,25 +49,10 @@ def _cond_hidden_width(y_dim: int, nz_cond: int) -> int:
 
 
 def unsupported(cfg: CAPEConfig) -> list[str]:
-    """The parts of `cfg` this port does not cover yet."""
-    missing = []
-    if cfg.op_mode != "banded":
-        missing.append(f"op_mode={cfg.op_mode!r} (only banded)")
-    if cfg.use_res_block:
-        missing.append("use_res_block (residual encoder blocks)")
-    if not cfg.use_res_block_dec:
-        missing.append("use_res_block_dec=False (plain deconv decoder)")
-    elif not cfg.affine:
-        missing.append("affine=False (the CMR group-norm decoder)")
-    if cfg.fuse_decoder:
-        missing.append("fuse_decoder (composed L~@U decoder operators)")
-    if not cfg.fold_conditions:
-        missing.append("fold_conditions=False (materialized condition concat)")
+    """The parts of `cfg` this port does not cover."""
     if cfg.compute_dtype not in DTYPES:
-        missing.append(f"compute_dtype={cfg.compute_dtype!r}")
-    if cfg.remat:
-        missing.append("remat (recomputed block activations)")
-    return missing
+        return [f"compute_dtype={cfg.compute_dtype!r} (float32 or bfloat16)"]
+    return []
 
 
 class ParamTree(nn.Module):
@@ -97,6 +85,29 @@ class CAPE(nn.Module):
         self.act = ACTIVATIONS[config.activation]
         self.dtype = DTYPES[config.compute_dtype]
 
+    def _block(self, fn):
+        """With cfg.remat, `fn` runs under activation checkpointing while
+        autograd records: the backward pass recomputes the block's
+        activations (and launches its kernels again) instead of storing
+        them."""
+        if not self.cfg.remat:
+            return fn
+
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False)
+
+        return run
+
+    @property
+    def _affine_dec(self) -> bool:
+        return self.cfg.use_res_block_dec and self.cfg.affine
+
+    @property
+    def _cmr_dec(self) -> bool:
+        return self.cfg.use_res_block_dec and not self.cfg.affine
+
     # ------------------------------------------------------------- channels
     def _encoder_channels(self) -> list[int]:
         cfg = self.cfg
@@ -115,7 +126,7 @@ class CAPE(nn.Module):
         for i in range(cfg.num_conv_layers):
             fout = F_[-(i + 1)]
             plan.append((c, fout))
-            c = fout // 2 + ncond          # affine blocks output fout // 2
+            c = (fout // 2 if self._affine_dec else fout) + ncond  # affine: fout // 2
         return plan
 
     # ------------------------------------------------------------------ init
@@ -141,8 +152,9 @@ class CAPE(nn.Module):
         enc_chans = self._encoder_channels()
         F_, K = cfg.channels, cfg.K
         encoder: dict = {}
+        enc_init = blocks.res_block_init if cfg.use_res_block else blocks.conv_block_init
         for i in range(cfg.num_conv_layers):
-            encoder[f"layer{i}"] = blocks.conv_block_init(g, K, enc_chans[i], F_[i])
+            encoder[f"layer{i}"] = enc_init(g, K, enc_chans[i], F_[i])
         p_last = ctx.level_sizes[-1]
         enc_out_c = F_[-1]
         if cfg.reduce_dim > 0:
@@ -157,11 +169,14 @@ class CAPE(nn.Module):
         if cfg.reduce_dim > 0:
             decoder["expand"] = blocks.conv1x1_init(g, fc1_out_c, F_[-1])
         plan = self._decoder_plan()
+        dec_init = (blocks.affine_block_init if self._affine_dec
+                    else blocks.cmr_block_init if self._cmr_dec else blocks.conv_block_init)
         for i, (fin, fout) in enumerate(plan):
-            decoder[f"layer{i}"] = blocks.affine_block_init(g, K, fin, fout)
+            decoder[f"layer{i}"] = dec_init(g, K, fin, fout)
         ncond = cfg.nz_cond + cfg.nz_cond2
+        last_out = plan[-1][1] // 2 if self._affine_dec else plan[-1][1]
         decoder["out"] = {
-            "w": conv_weight(g, K, plan[-1][1] // 2 + ncond, cfg.nn_input_channel),
+            "w": conv_weight(g, K, last_out + ncond, cfg.nn_input_channel),
             "b": torch.full((ctx.level_sizes[0], cfg.nn_input_channel), 0.1),
         }
 
@@ -213,13 +228,25 @@ class CAPE(nn.Module):
         x = x.to(self.dtype)
         if ctx.padded:
             x = _pad_vertex_rows(x)  # enter the padded layout
+        fold = cfg.fold_conditions and cfg.cond_encoder
+        if cfg.cond_encoder and not fold:
+            x = blocks.concat_conditions(x, y, y2)
         for i in range(cfg.num_conv_layers):
             p = enc[f"layer{i}"]
             lap, down = ctx.lap[i], ctx.down[i]
-            if cfg.cond_encoder and i == 0:
-                x = blocks.conv_block_folded_apply(p, x, [y, y2], lap, down, self.act)
-            else:
-                x = blocks.conv_block_apply(p, x, lap, down, self.act)
+            if fold and i == 0:
+                # the conditions enter at the input concat only: folded
+                # into the first conv (ops.cheb.cheb_conv_folded)
+                form = (blocks.res_block_folded_apply if cfg.use_res_block
+                        else blocks.conv_block_folded_apply)
+                blk = self._block(lambda p, x, y, y2, lap=lap, down=down, form=form:
+                                  form(p, x, [y, y2], lap, down, self.act))
+                x = blk(p, x, y, y2)
+                continue
+            form = blocks.res_block_apply if cfg.use_res_block else blocks.conv_block_apply
+            blk = self._block(lambda p, x, lap=lap, down=down, form=form:
+                              form(p, x, lap, down, self.act))
+            x = blk(p, x)
         if ctx.padded:
             x = x[:, : ctx.level_sizes[-1], :]  # exit the padded layout
         if cfg.reduce_dim > 0:
@@ -239,11 +266,58 @@ class CAPE(nn.Module):
             x = blocks.conv1x1_apply(dec["expand"], x, ctx.lap[-1])
         if ctx.padded:
             x = _pad_vertex_rows(x)  # enter the padded layout
-        for i in range(cfg.num_conv_layers):
-            x = blocks.affine_block_folded_apply(
-                dec[f"layer{i}"], x, [y, y2], ctx.lap[-(i + 2)], ctx.up[-(i + 1)]
+
+        # folding is exact for the linear block forms (deconv, affine); the
+        # CMR block's group norms see the condition channels, so that path
+        # keeps the materialized concat
+        fold = cfg.fold_conditions and not self._cmr_dec
+        if not fold:
+            x = blocks.concat_conditions(x, y, y2)
+        # the fused unpool-conv: the composed L~@U operators replace the
+        # separate unpool and fine-level conv (ops.cheb.cheb_conv_up)
+        fuse = cfg.fuse_decoder and fold and cfg.K == 2
+        if fuse and len(ctx.lap_up) == 0:
+            raise ValueError(
+                "cfg.fuse_decoder=True needs the composed L~@U operators: "
+                "build the GraphContext with build_fused=True"
             )
-        x = cheb_conv_folded(x, [y, y2], ctx.lap[0], dec["out"]["w"])
+        for i in range(cfg.num_conv_layers):
+            p = dec[f"layer{i}"]
+            lap, up = ctx.lap[-(i + 2)], ctx.up[-(i + 1)]
+            if fold:
+                if fuse:
+                    lu = ctx.lap_up[-(i + 1)]
+                    if self._affine_dec:
+                        blk = lambda p, x, y, y2, up=up, lu=lu: blocks.affine_block_fused_apply(
+                            p, x, [y, y2], up, lu)
+                    else:
+                        blk = lambda p, x, y, y2, up=up, lu=lu: blocks.deconv_block_fused_apply(
+                            p, x, [y, y2], up, lu, self.act)
+                elif self._affine_dec:
+                    blk = lambda p, x, y, y2, lap=lap, up=up: blocks.affine_block_folded_apply(
+                        p, x, [y, y2], lap, up)
+                else:
+                    blk = lambda p, x, y, y2, lap=lap, up=up: blocks.deconv_block_folded_apply(
+                        p, x, [y, y2], lap, up, self.act)
+                x = self._block(blk)(p, x, y, y2)
+                continue
+            if self._affine_dec:
+                blk = lambda p, x, lap=lap, up=up: blocks.affine_block_apply(p, x, lap, up)
+            elif self._cmr_dec:
+                # padded layout: the group-norm statistics run over the
+                # natural vertex count of the unpooled level only
+                nv = lap.n_rows if ctx.padded else None
+                blk = lambda p, x, lap=lap, up=up, nv=nv: blocks.cmr_block_apply(
+                    p, x, lap, up, n_valid=nv)
+            else:
+                blk = lambda p, x, lap=lap, up=up: blocks.deconv_block_apply(
+                    p, x, lap, up, self.act)
+            x = self._block(blk)(p, x)
+            x = blocks.concat_conditions(x, y, y2)
+        if fold:
+            x = cheb_conv_folded(x, [y, y2], ctx.lap[0], dec["out"]["w"])
+        else:
+            x = cheb_conv(x, ctx.lap[0], dec["out"]["w"])
         if ctx.padded:
             x = x[:, : ctx.level_sizes[0], :]  # exit the padded layout
         return x + dec["out"]["b"].to(x.dtype)
@@ -277,13 +351,20 @@ class CAPE(nn.Module):
         x = x.to(self.dtype)
         if ctx.padded:
             x = _pad_vertex_rows(x)
+        fold = self.cfg.fold_conditions
+        if not fold:
+            x = blocks.concat_conditions(x, y, y2)
         for i in range(len(ctx.down_d)):
             lap, down = ctx.lap_d[i], ctx.down_d[i]
             p = disc[f"layer{i}"]
-            if i == 0:
-                x = blocks.conv_block_folded_apply(p, x, [y, y2], lap, down, self.act)
+            if fold and i == 0:
+                blk = self._block(lambda p, x, y, y2, lap=lap, down=down:
+                                  blocks.conv_block_folded_apply(p, x, [y, y2], lap, down, self.act))
+                x = blk(p, x, y, y2)
             else:
-                x = blocks.conv_block_apply(p, x, lap, down, self.act)
+                blk = self._block(lambda p, x, lap=lap, down=down:
+                                  blocks.conv_block_apply(p, x, lap, down, self.act))
+                x = blk(p, x)
         x = cheb_conv(x, ctx.lap_d[-1], disc["pred"]["w"])
         if ctx.padded:
             x = x[:, : ctx.level_sizes_d[-1], :]  # exit the padded layout

@@ -95,6 +95,58 @@ def cheb_conv(x: torch.Tensor, lap, weight: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def cheb_conv_up(x: torch.Tensor, up, lap_up, weight: torch.Tensor) -> torch.Tensor:
+    """K<=2 Chebyshev conv with the decoder's unpool composed into the
+    operator: y = sum_k T_k(L~_fine) (U x) W[k], evaluated as
+
+        y = U (x W[0]) + (L~ U) (x W[1])
+
+    with lap_up = L~ @ U (GraphContext.lap_up). An exact reordering: the
+    projections run at the coarse vertex count and U x never exists."""
+    K = weight.shape[0]
+    w = weight.to(x.dtype)
+    y = up(_project(x, w[0]))
+    if K == 1:
+        return y
+    if K != 2:
+        raise ValueError(f"cheb_conv_up takes K <= 2, got K={K}; use cheb_conv")
+    return y + lap_up(_project(x, w[1]))
+
+
+def cheb_conv_up_folded(
+    x: torch.Tensor,
+    conds: list[torch.Tensor],
+    up,
+    lap_up,
+    weight: torch.Tensor,
+) -> torch.Tensor:
+    """cheb_conv_up over concat([x, c (x) 1, ...]) taken before the unpool,
+    with the condition channels folded (see cheb_conv_folded): each
+    condition term is (T_k(L~) U 1) (x) (c W_c[k])."""
+    K, fin_total, _ = weight.shape
+    fx = x.shape[-1]
+    w = weight.to(x.dtype)
+    y = cheb_conv_up(x, up, lap_up, w[:, :fx, :])
+
+    ones = torch.ones((x.shape[-2], 1), dtype=x.dtype, device=x.device)
+    seed_basis = [up(ones)]
+    if K == 2:
+        seed_basis.append(lap_up(ones))
+    V = y.shape[-2]
+    off = fx
+    for c in conds:
+        dim = c.shape[-1]
+        c = c.to(x.dtype)
+        for k in range(K):
+            proj = c @ w[k, off : off + dim, :]                  # [B, Fout]
+            basis = seed_basis[k].reshape((1,) * (y.dim() - 2) + (V, 1))
+            y = y + basis * proj[..., None, :]
+        off += dim
+    if off != fin_total:
+        raise ValueError(f"condition channels {off} != weight rows {fin_total}")
+    return y
+
+
 def cheb_conv_folded(
     x: torch.Tensor,
     conds: list[torch.Tensor],

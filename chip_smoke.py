@@ -9,7 +9,9 @@ result line):
      log ptxas's registers and spills.
   3. kernel: the band-apply kernel (csrc/band_gather.cu over the op's
      gather pack) against its plain PyTorch version at every batch-32 and
-     batch-64 shape of the flagship serving path, one natural-layout and
+     batch-64 shape of the flagship serving path and every batch-32 shape
+     the families phase adds (C = 96 at P = 6912; C = 576, 320, 192 and
+     128 of the unfolded decode), one natural-layout and
      one ragged-column case, in f32 and bf16; then its
      addend variant (the backward pass of the conv) at every batch-32
      shape of the train step, the discriminator's [32, 512, 128] included,
@@ -92,6 +94,33 @@ result line):
      autograd at [32, 6912, 64] -> 64, padded, f32, held to the plain
      conv's autograd (y, dx, dW within 1e-5 relative); one launch each in
      the forward, none in the backward.
+ 17. families (after phase 16): the model families past the flagship,
+     f32, batch 32, seed-0 parameters, each main path with the counts at 0
+     just before and read just after, held to
+     tests/data/torch_golden_families.npz (written by the JAX package).
+     (1) The CMR release preset (GraphCMR group-norm decoder, unfolded
+     output conv on 64 + 32 channels) behind the HTTP server: the serve
+     phase's requests, 7 band_apply launches per encode and decode device
+     call and no other kernel; the same requests on the plain route, no
+     launch, held to the kernel route; the golden's decode (1e-4 *
+     max|ref|) and encode (z_mean, z_logvar); two GAN steps on the kernel
+     and the plain route (17 + 17 and 0 + 0 launches a step) held to the
+     golden (metrics 1e-4 relative, updates by hold_updates); the same
+     steps with remat=True held to those without it (metrics 1e-5
+     relative, updates within 1e-5 of each leaf's max|update|), its extra
+     forward launches logged; the decode call and the train step timed on
+     both routes (3 rounds of 2 steps); the train mode through
+     apps.main.run, as phase 10. (2) default_config.yaml (residual
+     encoder, CMR decoder): encode (15 launches) and decode (7) held to the
+     golden, two GAN steps (25 + 25 launches a step) held to it. (3) The
+     flagship's knobs, one batch-32 decode each through InferenceEngine
+     held within 1e-4 * max|ref| to tests/data/torch_golden_flagship.npz:
+     fold_conditions=False (9 launches), fuse_decoder=True (0); and to
+     the families golden's natural-order decode (JAX's ELL mode; the
+     coarsest level's vertex order lays out fc1's output, and only the
+     banded mode permutes it): op_mode="ell" (0) and op_mode="dense" (0).
+     Phase 3 holds the new apply shapes (FAMILY_APPLIES) to the plain
+     version.
  14. lab (last): the kernel lab's conv, conv --padded 1, layout, fuse and
      bmapply with the counts at 0 just before; its errors within their
      limits; the v2, v1, v5 and bm kernels launched.
@@ -125,6 +154,9 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_flagship.npz")
 GOLDEN_TRAIN = os.path.join(ROOT, "tests", "data", "torch_golden_train.npz")
 PRESET_NZ18 = os.path.join(ROOT, "configs", "CAPE-affineconv_nz18_pose24_clotype8_male.yaml")
 GOLDEN_DEMO = os.path.join(ROOT, "tests", "data", "torch_golden_demo.npz")
+PRESET_CMR = os.path.join(ROOT, "configs", "CAPE_nz18_pose24_clotype8_male.yaml")
+PRESET_DEFAULT = os.path.join(ROOT, "configs", "default_config.yaml")
+GOLDEN_FAMILIES = os.path.join(ROOT, "tests", "data", "torch_golden_families.npz")
 # no SMPL model file: the demo suites export unposed meshes
 NO_SMPL = os.path.join(ROOT, "build", "no_smpl_model")
 GATHER_SOURCE = "cape_tpu_torch/csrc/band_gather.cu"   # rows 2, 2b and 3
@@ -144,6 +176,18 @@ ON_PATH = [(896, 512), (896, 256), (1792, 256), (1792, 128), (3456, 128), (3456,
 # the discriminator's pred conv on the 431-vertex ds2 level (one per
 # discriminator call, three per train step)
 PRED = (512, 128)
+# (P, C) of the band applies the families phase adds: the CMR decoder's
+# unfolded output conv (64 block + 32 condition channels), and the
+# flagship's decode with fold_conditions=False (conditions concatenated
+# before every conv)
+FAMILY_APPLIES = [(6912, 96), (896, 576), (896, 320), (1792, 320), (1792, 192), (3456, 192),
+                  (6912, 128)]
+# the band applies of one batch-32 decode call: the CMR preset's (and
+# default_config.yaml's), and the flagship's with fold_conditions=False
+CMR_DECODE = [(896, 256), (896, 256), (1792, 128), (1792, 128), (3456, 64), (3456, 64),
+              (6912, 96)]
+CONCAT_DECODE = [(896, 576), (896, 320), (1792, 320), (1792, 192), (3456, 192), (3456, 128),
+                 (6912, 128), (6912, 96), (6912, 96)]
 # applies per batch-32 train step in each direction: encoder and decoder
 # each run the seven ON_PATH shapes, the three discriminator calls PRED
 TRAIN_APPLIES = {**{pc: 2 for pc in ON_PATH}, PRED: 3}
@@ -331,7 +375,7 @@ def kernel_phase(ctx, smi):
     from cape_tpu_torch.tools.perf_lab import time_routes
 
     laps = _laps(ctx)
-    cases = [(32, P, C, True) for P, C in ON_PATH + [PRED]]
+    cases = [(32, P, C, True) for P, C in ON_PATH + [PRED] + FAMILY_APPLIES]
     cases += [(64, P, C, True) for P, C in ON_PATH + [(6912, 32)]]
     cases += [(32, 6890, 64, False), (32, 6912, 35, True)]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -357,7 +401,7 @@ def kernel_phase(ctx, smi):
                 f"(limit {limit:.3e})")
             if not err <= limit:
                 raise AssertionError(f"band_apply disagrees with its plain version: {rec}")
-            if B == 32 and padded and (P, C) in TRAIN_APPLIES:
+            if B == 32 and padded and ((P, C) in TRAIN_APPLIES or (P, C) in FAMILY_APPLIES):
                 routes = {
                     "ms": lambda: band_apply(x, blocks, op.pad_left, rows_out, pack=op.pack),
                     "plain_ms": lambda: band_apply_plain(x, blocks, op.pad_left, rows_out),
@@ -386,7 +430,7 @@ def addend_phase(ctx, smi):
     gen = torch.Generator(device="cuda").manual_seed(1)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
-        for P, C in TRAIN_APPLIES:
+        for P, C in [*TRAIN_APPLIES, FAMILY_APPLIES[0]]:
             op = laps[P]
             blocks = op.blocks.to(dtype).contiguous()
             x = torch.randn((32, P, C), generator=gen, device="cuda").to(dtype)
@@ -915,6 +959,51 @@ def hold_updates(name, got: dict, keys, summary, whole, rel=1e-3, tie_rel=0.25):
         raise AssertionError(f"{name}: updates of {bad} exceed the bound")
 
 
+def golden_view(golden, prefix: str) -> dict:
+    """One preset's arrays of a golden file that holds several, by their
+    own names (the families golden's keys are "<prefix>:<name>")."""
+    head = prefix + ":"
+    return {k[len(head):]: golden[k] for k in golden.files if k.startswith(head)}
+
+
+def check_fingerprint(name, model, golden) -> None:
+    """The model's parameters are the ones the golden was made from: the
+    same sorted keys and per-leaf sums (tests/make_torch_golden.py)."""
+    sd = model.state_dict()
+    keys = sorted(sd)
+    sums = np.array([sd[k].double().sum().item() for k in keys])
+    if keys != list(golden["param_keys"]) or not np.allclose(sums, golden["param_sums"],
+                                                             rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"{name}: parameters from seed 0 differ from the golden's")
+
+
+def gan_steps(cfg, c, batches, eps, spe, golden):
+    """GAN steps of a fresh seed-0 model on context c, one per batch and eps,
+    its parameters checked against `golden`'s fingerprint. Returns (train
+    state, the golden's metrics per step, the last step's updates as numpy,
+    band_apply (forward, backward) launches per step)."""
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState, train_step
+
+    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), c)
+    check_fingerprint(cfg.name, model, golden)
+    state = TrainState(model.to("cuda"), Optimizer(cfg, spe))
+    names = [str(k) for k in golden["metric_names"]]
+    metrics, counts = [], []
+    for batch, e in zip(batches, eps):
+        f0, b0 = cheb_kernel.launches, cheb_kernel.bwd_launches
+        m, updates = train_step(state, c, batch, e)
+        torch.cuda.synchronize()
+        counts.append((cheb_kernel.launches - f0, cheb_kernel.bwd_launches - b0))
+        metrics.append({k: float(m[k]) for k in names})
+    for i, m in enumerate(metrics):
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{cfg.name} step {i + 1}: non-finite metrics {m}")
+    return state, metrics, {k: v.cpu().numpy() for k, v in updates.items()}, counts
+
+
 def golden_batches(golden, perm):
     """The train golden's batch recipe on the device: synthetic data from
     its seed in the context's vertex order, G and D index streams seeded
@@ -947,11 +1036,8 @@ def train_phase(cfg, ctx, ctx_plain, smi):
     seed-0 parameters and the golden's batches and eps; launch counts per
     step; both routes held to each other and to the JAX golden; then the
     step time on both routes. Returns the step times."""
-    from cape_tpu_torch.models.cape import CAPE
-    from cape_tpu_torch.ops.kernels import cheb_kernel
-    from cape_tpu_torch.train.optim import Optimizer
     from cape_tpu_torch.tools.perf_lab import time_routes
-    from cape_tpu_torch.train.step import TrainState, train_step
+    from cape_tpu_torch.train.step import train_step
 
     golden = np.load(GOLDEN_TRAIN)
     names = [str(k) for k in golden["metric_names"]]
@@ -961,28 +1047,12 @@ def train_phase(cfg, ctx, ctx_plain, smi):
     batches, spe = golden_batches(golden, ctx.perm0)
     runs = {}
     for route, c in (("kernel", ctx), ("plain", ctx_plain)):
-        model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), c)
-        sd = model.state_dict()
-        sums = np.array([sd[k].double().sum().item() for k in keys])
-        if sorted(sd) != keys or not np.allclose(sums, golden["param_sums"], rtol=1e-6, atol=1e-6):
-            raise AssertionError("parameters from seed 0 differ from the train golden's")
-        state = TrainState(model.to("cuda"), Optimizer(cfg, spe))
-        metrics, counts = [], []
-        for batch, e in zip(batches, eps):
-            f0, b0 = cheb_kernel.launches, cheb_kernel.bwd_launches
-            m, updates = train_step(state, c, batch, e)
-            torch.cuda.synchronize()
-            counts.append((cheb_kernel.launches - f0, cheb_kernel.bwd_launches - b0))
-            metrics.append({k: float(m[k]) for k in names})
-        updates = {k: v.cpu().numpy() for k, v in updates.items()}
+        state, metrics, updates, counts = gan_steps(cfg, c, batches, eps, spe, golden)
         log(f"train step, {route} route: band_apply launches (forward, backward) per step "
             f"{counts}; step 1 " + " ".join(f"{k}={v:.6g}" for k, v in metrics[0].items()))
         want = [(FWD_PER_STEP, BWD_PER_STEP)] * 2 if route == "kernel" else [(0, 0)] * 2
         if counts != want:
             raise AssertionError(f"{route} route: launches {counts}, expected {want}")
-        for i, m in enumerate(metrics):
-            if not all(math.isfinite(v) for v in m.values()):
-                raise AssertionError(f"{route} route step {i + 1}: non-finite metrics {m}")
         runs[route] = (state, c, metrics, updates)
 
     kernel, plain = runs["kernel"], runs["plain"]
@@ -1007,20 +1077,21 @@ def train_phase(cfg, ctx, ctx_plain, smi):
     return times
 
 
-def run_phase(cfg):
+def run_phase(cfg, golden=None):
     """The train mode through apps.main.run on synthetic data (n_train=64:
     32 train rows after the val split, one step per epoch, two epochs),
     which ends, as the JAX package's, with the DemoSuite (test_model on
     the 32 test rows, then run(): 6 demo poses and 4 clothing types, 5
     samples each), with the kernel counts set to 0 just before and read
     just after; its checkpoint restored bit-equal through restore_params;
-    one decode from the restored model. Returns the (forward, backward)
-    launch counts."""
+    one decode from the restored model of `golden`'s z, pose and clothing
+    type (by default the flagship golden's). Returns the (forward,
+    backward) launch counts."""
     from cape_tpu_torch.apps.main import restore_params, run
     from cape_tpu_torch.data.synthetic import synthetic_bodydata
     from cape_tpu_torch.models.cape import CAPE
 
-    run_cfg = cfg.replace(name="chip_smoke_train", mode="train", num_epochs=2,
+    run_cfg = cfg.replace(name=f"{cfg.name}_train", mode="train", num_epochs=2,
                           smpl_model_folder=NO_SMPL)
     data = synthetic_bodydata(n_train=64, n_test=32, num_verts=6890, seed=cfg.seed)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_run_")
@@ -1054,7 +1125,7 @@ def run_phase(cfg):
             if not torch.equal(v, trained[k].cpu()):
                 raise AssertionError(f"restored {k} differs from the trained parameter")
         log(f"restore_params: {len(trained)} leaves bit-equal to the trained parameters")
-        golden = np.load(GOLDEN)
+        golden = np.load(GOLDEN) if golden is None else golden
         dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
         restored.to("cuda")
         with torch.inference_mode():
@@ -1241,11 +1312,7 @@ def demo_phase(smi):
     t0 = time.perf_counter()
     ctx = build_context(cfg, device="cuda")
     model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx)
-    sd = model.state_dict()
-    sums = np.array([sd[k].double().sum().item() for k in sorted(sd)])
-    if sorted(sd) != list(golden["param_keys"]) or not np.allclose(
-            sums, golden["param_sums"], rtol=1e-6, atol=1e-6):
-        raise AssertionError("nz18 parameters from seed 0 differ from the demo golden's")
+    check_fingerprint("nz18 preset", model, golden)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_demo_")
     launches, seconds = 0, {}
     try:
@@ -1319,6 +1386,250 @@ def demo_phase(smi):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def served_launches(name, engine, counts, per_call: int) -> int:
+    """The band_apply launches of a main path that ran `engine`'s device
+    calls: exactly per_call per encode and decode call, no other kernel."""
+    calls = dict(engine.calls)
+    want = per_call * (calls["encode"] + calls["decode"])
+    log(f"{name}: device calls {calls}, band_apply launches {counts['launches']} "
+        f"(expected {want}); all counts {json.dumps(counts)}")
+    if counts["launches"] != want or not only(counts, "launches"):
+        raise AssertionError(f"{name}: {counts} for {calls}")
+    return counts["launches"]
+
+
+def cmr_serve(cfg, ctx, ctx_plain, golden, smi):
+    """The CMR preset behind the HTTP server on both routes, then the
+    golden decode and encode and the decode time. Returns (launches, the
+    model on the GPU, decode times)."""
+    from cape_tpu_torch.apps.inference import InferenceEngine
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.tools.perf_lab import time_routes
+
+    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx)
+    check_fingerprint("CMR preset", model, golden)
+    model.to("cuda")
+    pose, clo = golden["pose"], golden["clo"]
+    engine = InferenceEngine(model, ctx, cfg.batch_size)
+    httpd, thread, ms, client = start_server(engine)
+    log(f"serving {cfg.name} ({sum(p.numel() for p in model.parameters())} parameters); "
+        f"warmup {ms.warmup():.2f} s")
+    try:
+        # ---- the CMR serve path: every count at 0 just before, read just after
+        zero_counts()
+        engine.calls = dict.fromkeys(engine.calls, 0)
+        served = requests(client, pose, clo)
+        launches = served_launches("CMR preset served", engine, read_counts(), 7)
+    finally:
+        stop_server(httpd, thread)
+    engine_plain = InferenceEngine(model, ctx_plain, cfg.batch_size)
+    httpd, thread, _, client = start_server(engine_plain)
+    try:
+        zero_counts()
+        plain = requests(client, pose, clo)
+        if any(read_counts().values()):
+            raise AssertionError(f"the CMR preset's plain route launched {read_counts()}")
+    finally:
+        stop_server(httpd, thread)
+    for name in ("sample", "decode", "reconstruct"):
+        held_to(f"CMR preset, kernel route vs plain route /{name}", served[name]["disp"],
+                plain[name]["disp"])
+
+    # ---- the JAX golden's decode and encode (main path: counts at 0, read after)
+    zero_counts()
+    engine.calls = dict.fromkeys(engine.calls, 0)
+    y, y2 = engine.encode_only_condition(pose, clo)
+    disp = engine.decode(np.concatenate([golden["z"], y, y2], -1), y, y2)
+    check_mesh("CMR golden decode", disp, 32)
+    x = golden_meshes(golden)
+    z_mean, z_logvar, _, _ = engine.encode(x, pose, clo)
+    launches += served_launches("CMR preset golden decode and encode", engine, read_counts(), 7)
+    held_to("CMR preset, kernel route vs JAX golden (batch-32 decode)", disp[: len(golden["disp"])],
+            golden["disp"])
+    held_to("CMR preset, kernel route vs JAX golden (encode z_mean)", z_mean, golden["z_mean"])
+    held_to("CMR preset, kernel route vs JAX golden (encode z_logvar)", z_logvar,
+            golden["z_logvar"])
+
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    zt, ty, ty2 = dev(np.concatenate([golden["z"], y, y2], -1)), dev(y), dev(y2)
+    with torch.inference_mode():
+        t = time_routes({name: functools.partial(model.decode, c, zt, ty, ty2)
+                         for name, c in (("kernel", ctx), ("plain", ctx_plain))})
+    for name, v in t.items():
+        log(f"batch-32 CMR preset decode device call, {name} route [{smi}]: {v:.3f} ms")
+    return launches, t
+
+
+def golden_meshes(golden) -> np.ndarray:
+    """The families golden's 32 meshes to encode, drawn again (the recipe of
+    tests/make_torch_golden.py), checked against the golden's sums."""
+    x = (0.02 * np.random.default_rng(2).standard_normal((32, 6890, 3))).astype(np.float32)
+    sums = np.array([x.astype(np.float64).sum(), np.abs(x.astype(np.float64)).sum()])
+    if not np.allclose(sums, golden["x_sums"], rtol=1e-12, atol=0):
+        raise AssertionError(f"encode meshes {sums} are not the golden's {golden['x_sums']}")
+    return x
+
+
+def hold_steps(name, runs_metrics, updates, golden) -> None:
+    """Two steps' metrics (1e-4 relative) and the step-2 updates
+    (hold_updates) against a families golden. The updates' bound is the
+    larger of 1e-3 and twice the golden's `update_spread`: how far JAX's
+    own updates move when its parameters move by about one float32 ulp
+    (tests/make_torch_golden.py). Where the step is that sensitive to
+    rounding, no f32 implementation can come closer."""
+    names = [str(k) for k in golden["metric_names"]]
+    keys = [str(k) for k in golden["param_keys"]]
+    whole = {k[len("update/"):]: golden[k] for k in golden if k.startswith("update/")}
+    for i, m in enumerate(runs_metrics):
+        held_metrics(f"{name} step {i + 1} vs JAX golden", m, dict(zip(names, golden["metrics"][i])))
+    rel = max(1e-3, 2 * float(golden["update_spread"]))
+    log(f"{name}: JAX's one-ulp update spread {float(golden['update_spread']):.3e}, "
+        f"bound {rel:.3e}")
+    hold_updates(f"{name} step-2 updates vs JAX golden", updates, keys, golden["update_summary"],
+                 whole, rel=rel)
+
+
+def families_phase(flagship_cfg, flagship_ctx, smi):
+    """Phase 17: the model families past the flagship, each main path with
+    the counts at 0 just before and read just after. Returns (forward
+    launches, backward launches, times)."""
+    from cape_tpu_torch.apps.inference import InferenceEngine
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.core.config import load_config
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.tools.perf_lab import time_routes
+    from cape_tpu_torch.train.step import train_step
+
+    fam = np.load(GOLDEN_FAMILIES)
+    times = {}
+    # ---- 1. the CMR release preset: served, golden, trained, remat
+    golden = golden_view(fam, "cmr")
+    cfg = load_config(PRESET_CMR, batch_size=32, compute_dtype="float32", name="chip_smoke_cmr")
+    t0 = time.perf_counter()
+    ctx = build_context(cfg, device="cuda")
+    ctx_plain = build_context(cfg.replace(use_pallas=False), device="cuda")
+    log(f"CMR preset contexts built in {time.perf_counter() - t0:.2f} s")
+    fwd, t = cmr_serve(cfg, ctx, ctx_plain, golden, smi)
+    times["cmr_decode_ms"] = t
+    bwd = 0
+    eps = torch.from_numpy(golden["eps"]).cuda()
+    batches, spe = golden_batches(golden, ctx.perm0)
+    runs = {}
+    for route, c, rcfg in (("kernel", ctx, cfg), ("plain", ctx_plain, cfg),
+                           ("remat", ctx, cfg.replace(remat=True))):
+        zero_counts()
+        state, metrics, updates, counts = gan_steps(rcfg, c, batches, eps, spe, golden)
+        total = read_counts()
+        log(f"CMR train steps, {route}: band_apply launches (forward, backward) per step "
+            f"{counts}; all counts {json.dumps(total)}")
+        want = {"kernel": [(FWD_PER_STEP, BWD_PER_STEP)] * 2, "plain": [(0, 0)] * 2}.get(route)
+        if want is not None and counts != want:
+            raise AssertionError(f"CMR {route} steps: launches {counts}, expected {want}")
+        if not only(total, "launches", "bwd_launches"):
+            raise AssertionError(f"CMR {route} steps launched {total}")
+        if route == "remat":
+            # the checkpointed blocks' forwards run again in the backward pass
+            extra = [f - FWD_PER_STEP for f, _ in counts]
+            log(f"CMR train steps with remat: {extra} band_apply forward launches per step "
+                f"beyond the {FWD_PER_STEP} of the steps without it (recomputed blocks)")
+            if any(b != BWD_PER_STEP for _, b in counts) or min(extra) <= 0:
+                raise AssertionError(f"CMR remat steps: launches {counts}")
+        fwd += total["launches"]
+        bwd += total["bwd_launches"]
+        runs[route] = (state, c, metrics, updates)
+    for route in ("kernel", "plain"):
+        hold_steps(f"CMR preset, {route} route", runs[route][2], runs[route][3], golden)
+    for i in range(2):
+        held_metrics(f"CMR step {i + 1}, remat vs without", runs["remat"][2][i],
+                     runs["kernel"][2][i], rel=1e-5)
+    worst = max(np.abs(runs["remat"][3][k] - u).max() / max(np.abs(u).max(), 1e-30)
+                for k, u in runs["kernel"][3].items())
+    log(f"CMR step-2 updates, remat vs without: worst {worst:.3e} of the leaf's max|update| "
+        f"(limit 1e-5)")
+    if not worst <= 1e-5:
+        raise AssertionError("CMR remat updates differ from the updates without it")
+    step = lambda state, c: train_step(state, c, batches[0], eps[0])
+    t = time_routes({route: functools.partial(step, *runs[route][:2])
+                     for route in ("kernel", "plain")}, rounds=3, calls=2)
+    for route, v in t.items():
+        log(f"batch-32 CMR preset train step, {route} route [{smi}]: {v:.3f} ms "
+            f"(CUDA events, routes in turns, median of 3 rounds of 2 steps)")
+    times["cmr_step_ms"] = t
+    del runs, ctx_plain
+    # the train entry point a user calls (apps.main.run, as phase 10)
+    run_fwd, run_bwd = run_phase(cfg, golden)
+    fwd += run_fwd
+    bwd += run_bwd
+
+    # ---- 2. default_config.yaml: residual encoder and CMR decoder
+    golden = golden_view(fam, "default")
+    dcfg = load_config(PRESET_DEFAULT, batch_size=32, compute_dtype="float32",
+                       name="chip_smoke_default")
+    model = CAPE(dcfg).init_params(torch.Generator().manual_seed(0), ctx)
+    check_fingerprint("default_config.yaml", model, golden)
+    engine = InferenceEngine(model.to("cuda"), ctx, 32)
+    pose, clo = golden["pose"], golden["clo"]
+    x = golden_meshes(golden)
+    for stage, per_call in (("encode", 15), ("decode", 7)):
+        zero_counts()
+        engine.calls = dict.fromkeys(engine.calls, 0)
+        if stage == "encode":
+            z_mean, z_logvar, y, y2 = engine.encode(x, pose, clo)
+        else:
+            disp = engine.decode(np.concatenate([golden["z"], y, y2], -1), y, y2)
+        counts = read_counts()
+        calls = dict(engine.calls)
+        log(f"default_config.yaml {stage}: device calls {calls}; all counts {json.dumps(counts)}")
+        if counts["launches"] != per_call * calls[stage] or not only(counts, "launches"):
+            raise AssertionError(f"default_config.yaml {stage}: {counts} for {calls}")
+        fwd += counts["launches"]
+    held_to("default_config.yaml vs JAX golden (encode z_mean)", z_mean, golden["z_mean"])
+    held_to("default_config.yaml vs JAX golden (encode z_logvar)", z_logvar, golden["z_logvar"])
+    check_mesh("default_config.yaml golden decode", disp, 32)
+    held_to("default_config.yaml vs JAX golden (batch-32 decode)", disp[: len(golden["disp"])],
+            golden["disp"])
+    batches, spe = golden_batches(golden, ctx.perm0)
+    zero_counts()
+    _, metrics, updates, counts = gan_steps(dcfg, ctx, batches,
+                                            torch.from_numpy(golden["eps"]).cuda(), spe, golden)
+    total = read_counts()
+    log(f"default_config.yaml train steps: band_apply launches (forward, backward) per step "
+        f"{counts}; all counts {json.dumps(total)}")
+    if counts != [(25, 25)] * 2 or not only(total, "launches", "bwd_launches"):
+        raise AssertionError(f"default_config.yaml steps: launches {counts}, expected 25 + 25")
+    fwd += total["launches"]
+    bwd += total["bwd_launches"]
+    hold_steps("default_config.yaml", metrics, updates, golden)
+    del engine, model, ctx
+
+    # ---- 3. the flagship's knobs, each held to the flagship golden; the
+    # ELL and dense modes keep the natural vertex order, in which fc1's
+    # output is laid out otherwise, so they have a golden of their own
+    golden = np.load(GOLDEN)
+    natural = golden_view(fam, "natural")
+    knobs = [("fold_conditions=False", {"fold_conditions": False}, 9, golden),
+             ("fuse_decoder=True", {"fuse_decoder": True}, 0, golden),
+             ('op_mode="ell"', {"op_mode": "ell"}, 0, natural),
+             ('op_mode="dense"', {"op_mode": "dense"}, 0, natural)]
+    for name, change, per_call, ref in knobs:
+        kcfg = flagship_cfg.replace(**change)
+        t0 = time.perf_counter()
+        kctx = flagship_ctx if name.startswith("fold") else build_context(kcfg, device="cuda")
+        model = CAPE(kcfg).init_params(torch.Generator().manual_seed(0), kctx)
+        check_fingerprint(f"flagship {name}", model, ref)
+        engine = InferenceEngine(model.to("cuda"), kctx, 32)
+        y, y2 = engine.encode_only_condition(golden["pose"], golden["clo"])
+        zero_counts()
+        engine.calls = dict.fromkeys(engine.calls, 0)
+        disp = engine.decode(np.concatenate([golden["z"], y, y2], -1), y, y2)
+        fwd += served_launches(f"flagship decode, {name}", engine, read_counts(), per_call)
+        check_mesh(f"flagship decode, {name}", disp, 32)
+        held_to(f"flagship decode, {name}, vs JAX golden", disp[: len(ref["disp"])], ref["disp"])
+        log(f"  ({time.perf_counter() - t0:.2f} s with the context)")
+        del engine, model, kctx
+    return fwd, bwd, times
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_phase()
@@ -1338,8 +1649,16 @@ def main():
     records = kernel_phase(ctx, smi)
     on_path = [r for r in records if "ms" in r and r["dtype"] == "float32"
                and (r["P"], r["C"]) in ON_PATH]
+    for name, shapes in (("CMR preset", CMR_DECODE), ("fold_conditions=False", CONCAT_DECODE)):
+        recs = [next(r for r in records if "ms" in r and r["dtype"] == "float32"
+                     and (r["P"], r["C"]) == pc) for pc in shapes]
+        total = lambda key: sum(r[key] for r in recs)
+        log(f"{name} decode's {len(recs)} band applies, f32 [{smi}]: kernel "
+            f"{total('ms'):.4f} ms, plain {total('plain_ms'):.4f}, library "
+            f"{total('library_ms'):.4f}, bound {summed_bound(recs)['bound_ms']:.4f}")
     bwd_records = addend_phase(ctx, smi)
     bwd_f32 = [r for r in bwd_records if r["dtype"] == "float32"]
+    bwd_step = [r for r in bwd_f32 if (r["P"], r["C"]) in TRAIN_APPLIES]
     fused_records = fused_phase(ctx, smi)
     bm_records = bm_phase(ctx, smi)
     ring_records, ring_counts = ring_phase(ctx, smi)
@@ -1388,13 +1707,7 @@ def main():
         held_to(f"kernel route vs plain route /{name}", served[name]["disp"], plain[name]["disp"])
 
     # ---- the JAX package's decode at full width
-    sd = model.state_dict()
-    keys = sorted(sd)
-    sums = np.array([sd[k].double().sum().item() for k in keys])
-    # the per-leaf sums tests/make_torch_golden.py recorded
-    if keys != list(golden["param_keys"]) or not np.allclose(sums, golden["param_sums"],
-                                                             rtol=1e-6, atol=1e-6):
-        raise AssertionError("parameters from seed 0 differ from the golden file's")
+    check_fingerprint("flagship", model, golden)
     y, y2 = engine.encode_only_condition(pose, clo)
     disp = engine.decode(np.concatenate([golden["z"], y, y2], -1), y, y2)
     check_mesh("golden decode", disp, 32)
@@ -1415,9 +1728,12 @@ def main():
     run_fwd, run_bwd = run_phase(cfg)
     mb_launches, mb_times = microbatch_phase(model, ctx, smi)
     demo_launches, demo_seconds = demo_phase(smi)
+    fam_fwd, fam_bwd, fam_times = families_phase(cfg, ctx, smi)
     log(f"main paths: serve {launches} band_apply launches; train mode {run_fwd} "
         f"band_apply and {run_bwd} band_apply_bwd launches; microbatch {mb_launches} and "
-        f"demo {demo_launches} band_apply launches")
+        f"demo {demo_launches} band_apply launches; families {fam_fwd} band_apply and "
+        f"{fam_bwd} band_apply_bwd launches")
+    log(f"families times [{smi}]: " + json.dumps(fam_times))
     log(f"serving latency under load [{smi}]: " + json.dumps(mb_times))
     log(f"DemoSuite modes, nz18 at batch 32 [{smi}]: " + json.dumps(demo_seconds))
     log(f"train step times [{smi}]: " + json.dumps(train_times))
@@ -1428,7 +1744,8 @@ def main():
                    "cheb2_fused": fused_records, "band_apply_bm": bm_records,
                    "cheb2_window": {"records": ring_records, "main_path_launches": ring_counts},
                    "lab": lab_lines, "lab_launches": lab_counts,
-                   "microbatch_latency": mb_times, "demo_mode_seconds": demo_seconds}, f)
+                   "microbatch_latency": mb_times, "demo_mode_seconds": demo_seconds,
+                   "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times}}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -1436,8 +1753,9 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES,
-        # the forward launches of the serve, train-mode, microbatch and demo main paths
-        "launches": launches + run_fwd + mb_launches + demo_launches,
+        # the forward launches of the serve, train-mode, microbatch, demo and
+        # families main paths
+        "launches": launches + run_fwd + mb_launches + demo_launches + fam_fwd,
         # worst f32 error over the batch-32 shapes of serving and training;
         # times and bounds summed over the seven band applies of one
         # batch-32 decode
@@ -1452,15 +1770,15 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES_BWD,
-        "launches": run_bwd,
-        # worst f32 error of the addend variant over the train step's
-        # shapes; times and bounds summed over the 17 backward applies of
-        # one step
+        "launches": run_bwd + fam_bwd,
+        # worst f32 error of the addend variant over the train steps'
+        # shapes (the CMR output conv's included); times and bounds summed
+        # over the 17 backward applies of one flagship step
         "max_abs_err": max(r["max_abs_err"] for r in bwd_f32),
-        "ms": per_step(bwd_f32, "ms"),
-        "plain_ms": per_step(bwd_f32, "plain_ms"),
-        **summed_bound(bwd_f32, lambda r: TRAIN_APPLIES[(r["P"], r["C"])]),
-        "library_ms": per_step(bwd_f32, "library_ms"),
+        "ms": per_step(bwd_step, "ms"),
+        "plain_ms": per_step(bwd_step, "plain_ms"),
+        **summed_bound(bwd_step, lambda r: TRAIN_APPLIES[(r["P"], r["C"])]),
+        "library_ms": per_step(bwd_step, "library_ms"),
     }]
     # rows 1, 4, 3, 5 and 6: launches from the lab (rows 1, 3, 4) and from
     # the ring phase's main path (rows 5, 6); the worst f32 error over their

@@ -1,7 +1,7 @@
 """Write the golden files `chip_smoke.py` holds the PyTorch port to, from the
 JAX package on the CPU, for parameters made by the port.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_golden.py [serve] [train] [demo]
+    JAX_PLATFORMS=cpu python tests/make_torch_golden.py [serve] [train] [demo] [families]
 
 Serve and train use the flagship preset, demo the nz18 release preset, each
 at full width, f32, on JAX's plain banded
@@ -37,6 +37,29 @@ shipped prior's GMM.sample of the suite's first key) are kept. Last, the
 server's draw: sample_np(default_rng(3), 4) of the prior, decoded under
 the first demo pose and the first clothing type; the file keeps z and the
 first two meshes.
+
+families -> tests/data/torch_golden_families.npz: the CMR release preset
+(configs/CAPE_nz18_pose24_clotype8_male.yaml, keys "cmr:...") and
+configs/default_config.yaml with a name set (residual encoder and CMR
+decoder, keys "default:..."), each at batch 32: the decode of the serve
+golden's inputs (z, pose, clothing type from default_rng(0)), keeping the
+first 8 meshes; the encode of 32 meshes 0.02 * default_rng(2) normal draws
+in natural vertex order under the same conditions, keeping z_mean,
+z_logvar and the meshes' sum and sum of |.| (so that a reader can tell it
+drew the same meshes); and two train steps by the train golden's recipe,
+keeping whole updates only of leaves under 4K elements. Last, how far
+JAX's own step-2 updates move when every parameter is moved by about one
+float32 ulp (p * (1 + 2^-24 * default_rng(3) normal draws)):
+`update_spread`, by the measures of chip_smoke.py's hold_updates (see
+`update_spread`). A reader holding its updates to this golden cannot ask
+for less than that (chip_smoke.py's bound is the larger of 1e-3 and
+twice it). And the flagship's decode of the serve golden's inputs in the
+natural vertex order (op_mode="ell"; "dense" agrees within 1e-5 *
+max|ref|), keys "natural:...", keeping the first 4 meshes: the fc1
+layer's output and the encoder's flatten are laid out by the coarsest
+level's vertex order, which the banded mode permutes, so the same
+parameters decode differently in the ELL and dense modes than in the
+banded mode.
 """
 
 from __future__ import annotations
@@ -52,6 +75,15 @@ OUT = os.path.join(ROOT, "tests", "data", "torch_golden_flagship.npz")
 OUT_TRAIN = os.path.join(ROOT, "tests", "data", "torch_golden_train.npz")
 PRESET_NZ18 = os.path.join(ROOT, "configs", "CAPE-affineconv_nz18_pose24_clotype8_male.yaml")
 OUT_DEMO = os.path.join(ROOT, "tests", "data", "torch_golden_demo.npz")
+OUT_FAMILIES = os.path.join(ROOT, "tests", "data", "torch_golden_families.npz")
+# the families golden's presets: key prefix -> (preset, overrides)
+FAMILIES = {
+    "cmr": (os.path.join(ROOT, "configs", "CAPE_nz18_pose24_clotype8_male.yaml"), {}),
+    "default": (os.path.join(ROOT, "configs", "default_config.yaml"),
+                {"name": "families_default"}),
+}
+FAMILIES_WHOLE_MAX = 4 * 1024
+KEEP_NATURAL = 4
 # the demo golden's data, prior draws and mesh count
 DEMO_TRAIN, DEMO_TEST, DEMO_KEEP, GMM_N, GMM_SEED, SERVE_N = 96, 64, 2, 2, 3, 4
 B, KEEP = 32, 8
@@ -74,6 +106,11 @@ def golden_inputs(cfg):
     return z, pose, clo
 
 
+def encode_inputs() -> np.ndarray:
+    """The families golden's 32 meshes to encode, natural vertex order."""
+    return (0.02 * np.random.default_rng(2).standard_normal((B, 6890, 3))).astype(np.float32)
+
+
 def train_eps(cfg) -> np.ndarray:
     return np.random.default_rng(1).standard_normal((STEPS, B, cfg.nz)).astype(np.float32)
 
@@ -82,6 +119,27 @@ def update_summary(delta: np.ndarray) -> np.ndarray:
     """[sum, sum of squares, max|.|] of an update, in float64."""
     d = delta.astype(np.float64)
     return np.array([d.sum(), np.square(d).sum(), np.abs(d).max()])
+
+
+def update_spread(ref: dict, other: dict, whole_max: int) -> float:
+    """How far the updates `other` are from `ref`, by the measures of
+    chip_smoke.py's hold_updates, relative to each leaf's max|ref|: the
+    error of max|.|, of the sum of squares (over twice it), of the sum
+    (over sqrt(n * sum of squares)) and, for a leaf under whole_max
+    elements, of its elements once the max(4, n / 10^4) largest, which
+    hold_updates lets through as ties, are set aside. The largest over the
+    leaves."""
+    worst = 0.0
+    for k, u in ref.items():
+        u, v = u.astype(np.float64), other[k].astype(np.float64)
+        r_max, r_sq = np.abs(u).max(), np.square(u).sum()
+        errs = [abs(np.abs(v).max() - r_max) / r_max, abs(np.square(v).sum() - r_sq) / (2 * r_sq),
+                abs(v.sum() - u.sum()) / np.sqrt(u.size * r_sq)]
+        ties = max(4, u.size // 10_000)
+        if ties < u.size < whole_max:
+            errs.append(np.sort((np.abs(v - u) / r_max).ravel())[-ties - 1])
+        worst = max(worst, *errs)
+    return float(worst)
 
 
 def make_serve(model, params):
@@ -104,12 +162,14 @@ def make_serve(model, params):
     print(f"wrote {OUT}: disp[:{KEEP}] max|ref| {np.abs(disp[:KEEP]).max():.6g}")
 
 
-def make_train(model, params):
+def train_steps(params, jcfg, ctx):
+    """Two GAN train steps of JAX (batch B, the synthetic batches of the
+    train golden's recipe, eps of train_eps) from `params`. Returns the
+    metrics [STEPS, len(METRICS)], eps, the step-2 updates by dotted key
+    path and the steps per epoch."""
     import jax
     import jax.numpy as jnp
 
-    from cape_tpu.apps.main import build_context as jax_build_context
-    from cape_tpu.core.config import load_config as jax_load_config
     from cape_tpu.data.loader import BatchStream
     from cape_tpu.data.synthetic import synthetic_bodydata
     from cape_tpu.models.cape import CAPE as JaxCAPE
@@ -123,9 +183,6 @@ def make_train(model, params):
         def sample_z(self, rng, z_mean, z_logvar):
             return z_mean + jnp.exp(0.5 * jnp.clip(z_logvar, -30.0, 30.0)) * rng
 
-    keys, sums = fingerprint(model.state_dict())
-    jcfg = jax_load_config(PRESET, use_pallas=False, batch_size=B)
-    ctx = jax_build_context(jcfg)
     data = synthetic_bodydata(n_train=N_TRAIN, n_test=N_TEST, num_verts=6890, seed=jcfg.seed)
     steps_per_epoch = len(data.disp_train) // B
     tx, _, _ = build_optimizer(jcfg, steps_per_epoch)
@@ -157,17 +214,125 @@ def make_train(model, params):
                                     jnp.asarray(eps[i]))
         metrics[i] = [float(m[k]) for k in METRICS]
         print(f"step {i + 1}: " + " ".join(f"{k}={v:.6g}" for k, v in zip(METRICS, metrics[i])))
-    deltas = _flatten(jax.device_get(updates))
-    assert sorted(deltas) == keys and np.isfinite(metrics).all()
-    whole = {f"update/{k}": deltas[k] for k in keys if deltas[k].size < WHOLE_MAX}
-    np.savez_compressed(
-        OUT_TRAIN, metric_names=np.array(METRICS), metrics=metrics, eps=eps,
-        seed=jcfg.seed, n_train=N_TRAIN, n_test=N_TEST, steps_per_epoch=steps_per_epoch,
-        param_keys=np.array(keys), param_sums=sums,
+    assert np.isfinite(metrics).all()
+    return metrics, eps, _flatten(jax.device_get(updates)), steps_per_epoch
+
+
+def train_record(keys, metrics, eps, deltas, steps_per_epoch, seed, whole_max) -> dict:
+    """The arrays a train golden keeps (see the module docstring)."""
+    assert sorted(deltas) == keys
+    whole = {f"update/{k}": deltas[k] for k in keys if deltas[k].size < whole_max}
+    return dict(
+        metric_names=np.array(METRICS), metrics=metrics, eps=eps, seed=seed, n_train=N_TRAIN,
+        n_test=N_TEST, steps_per_epoch=steps_per_epoch,
         update_summary=np.stack([update_summary(deltas[k]) for k in keys]), **whole,
     )
-    print(f"wrote {OUT_TRAIN}: {len(whole)} of {len(keys)} leaves whole, "
+
+
+def make_train(model, params):
+    from cape_tpu.apps.main import build_context as jax_build_context
+    from cape_tpu.core.config import load_config as jax_load_config
+
+    keys, sums = fingerprint(model.state_dict())
+    jcfg = jax_load_config(PRESET, use_pallas=False, batch_size=B)
+    record = train_record(keys, *train_steps(params, jcfg, jax_build_context(jcfg)),
+                          seed=jcfg.seed, whole_max=WHOLE_MAX)
+    np.savez_compressed(OUT_TRAIN, param_keys=np.array(keys), param_sums=sums, **record)
+    n_whole = sum(k.startswith("update/") for k in record)
+    print(f"wrote {OUT_TRAIN}: {n_whole} of {len(keys)} leaves whole, "
           f"{os.path.getsize(OUT_TRAIN)} bytes")
+
+
+def natural_decode() -> dict:
+    """The flagship's seed-0 decode of the serve golden's inputs in the ELL
+    and dense modes (natural vertex order), held to each other; the first
+    KEEP_NATURAL meshes of the ELL decode."""
+    import jax
+    import torch
+
+    from cape_tpu.apps.inference import InferenceEngine as JaxEngine
+    from cape_tpu.apps.main import build_context as jax_build_context
+    from cape_tpu.core.config import load_config as jax_load_config
+    from cape_tpu.models.cape import CAPE as JaxCAPE
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.core.bridge import to_jax_params
+    from cape_tpu_torch.core.config import load_config
+    from cape_tpu_torch.models.cape import CAPE
+
+    cfg = load_config(PRESET, op_mode="ell")
+    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), build_context(cfg))
+    params = jax.tree_util.tree_map(jax.numpy.asarray, to_jax_params(model))
+    keys, sums = fingerprint(model.state_dict())
+    z, pose, clo = golden_inputs(cfg)
+    disp = {}
+    for mode in ("ell", "dense"):
+        jcfg = jax_load_config(PRESET, op_mode=mode, batch_size=B)
+        engine = JaxEngine(JaxCAPE(jcfg), jax_build_context(jcfg), params, batch_size=B)
+        y, y2 = engine.encode_only_condition(pose, clo)
+        disp[mode] = engine.decode(np.concatenate([z, y, y2], -1), y, y2)
+    scale = np.abs(disp["ell"]).max()
+    assert np.isfinite(disp["ell"]).all()
+    assert np.abs(disp["ell"] - disp["dense"]).max() <= 1e-5 * scale
+    print(f"natural: disp[:{KEEP_NATURAL}] max|ref| {scale:.6g}, dense vs ell "
+          f"{np.abs(disp['ell'] - disp['dense']).max() / scale:.3g} of it")
+    return {"natural:disp": disp["ell"][:KEEP_NATURAL].astype(np.float32),
+            "natural:param_keys": np.array(keys), "natural:param_sums": sums}
+
+
+def make_families():
+    """The CMR release preset and default_config.yaml: decode, encode and two
+    train steps each (see the module docstring)."""
+    import jax
+    import torch
+
+    from cape_tpu.apps.inference import InferenceEngine as JaxEngine
+    from cape_tpu.apps.main import build_context as jax_build_context
+    from cape_tpu.core.config import load_config as jax_load_config
+    from cape_tpu.models.cape import CAPE as JaxCAPE
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.core.bridge import to_jax_params
+    from cape_tpu_torch.core.config import load_config
+    from cape_tpu_torch.models.cape import CAPE
+
+    out = {}
+    for prefix, (path, overrides) in FAMILIES.items():
+        cfg = load_config(path, batch_size=B, **overrides)
+        model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), build_context(cfg))
+        params = jax.tree_util.tree_map(jax.numpy.asarray, to_jax_params(model))
+        keys, sums = fingerprint(model.state_dict())
+        jcfg = jax_load_config(path, use_pallas=False, batch_size=B, **overrides)
+        ctx = jax_build_context(jcfg)
+        engine = JaxEngine(JaxCAPE(jcfg), ctx, params, batch_size=B)
+        z, pose, clo = golden_inputs(cfg)
+        y, y2 = engine.encode_only_condition(pose, clo)
+        disp = engine.decode(np.concatenate([z, y, y2], -1), y, y2)
+        x = encode_inputs()
+        z_mean, z_logvar, _, _ = engine.encode(x, pose, clo)
+        assert disp.shape == (B, 6890, 3) and np.isfinite(disp).all()
+        assert np.isfinite(z_mean).all() and np.isfinite(z_logvar).all()
+        train = train_steps(params, jcfg, ctx)
+        rng = np.random.default_rng(3)
+        nudged = jax.tree_util.tree_map(
+            lambda a: jax.numpy.asarray(
+                np.asarray(a) * (1 + 2.0**-24 * rng.standard_normal(a.shape))).astype(np.float32),
+            params)
+        deltas = train[2]
+        nudged_deltas = train_steps(nudged, jcfg, ctx)[2]
+        spread = update_spread(deltas, nudged_deltas, FAMILIES_WHOLE_MAX)
+        record = dict(
+            z=z, pose=pose, clo=clo, disp=disp[:KEEP].astype(np.float32),
+            x_sums=np.array([x.astype(np.float64).sum(), np.abs(x.astype(np.float64)).sum()]),
+            z_mean=np.asarray(z_mean, np.float32), z_logvar=np.asarray(z_logvar, np.float32),
+            param_keys=np.array(keys), param_sums=sums,
+            update_spread=spread,
+            **train_record(keys, *train, seed=jcfg.seed, whole_max=FAMILIES_WHOLE_MAX),
+        )
+        out.update({f"{prefix}:{k}": v for k, v in record.items()})
+        print(f"{prefix}: disp[:{KEEP}] max|ref| {np.abs(disp[:KEEP]).max():.6g}, "
+              f"z_mean max|ref| {np.abs(z_mean).max():.6g}, update_spread {spread:.6g}")
+    out.update(natural_decode())
+    np.savez_compressed(OUT_FAMILIES, **out)
+    print(f"wrote {OUT_FAMILIES}: {os.path.getsize(OUT_FAMILIES)} bytes")
 
 
 def demo_conditions(cfg):
@@ -241,7 +406,7 @@ def make_demo():
 
 
 def main(argv=None):
-    which = set(sys.argv[1:] if argv is None else argv) or {"serve", "train", "demo"}
+    which = set(sys.argv[1:] if argv is None else argv) or {"serve", "train", "demo", "families"}
     sys.path.insert(0, ROOT)
     import jax
     import torch
@@ -254,6 +419,8 @@ def main(argv=None):
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     if "demo" in which:
         make_demo()
+    if "families" in which:
+        make_families()
     if not which & {"serve", "train"}:
         return
     cfg = load_config(PRESET)

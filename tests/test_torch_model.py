@@ -202,14 +202,7 @@ def test_bf16_forward_tracks_f32(small_mesh, pyramids, monkeypatch, kernel_route
         np.testing.assert_allclose(a, b, rtol=0, atol=5e-2 * np.abs(b).max())
 
 
-@pytest.mark.parametrize(
-    "change",
-    [
-        {"op_mode": "ell"}, {"use_res_block": True}, {"affine": False},
-        {"use_res_block_dec": False}, {"fuse_decoder": True},
-        {"fold_conditions": False}, {"remat": True},
-    ],
-)
+@pytest.mark.parametrize("change", [{"compute_dtype": "float16"}])
 def test_unported_configs_raise(change):
     with pytest.raises(NotImplementedError, match="not ported"):
         CAPE(CAPEConfig(**dict(SMALL, **change)))
