@@ -9,7 +9,12 @@ table (`models.summary.describe`) first.
   * train: the graph context, the model (parameters from torch.Generator
     seed 0), the data and the Trainer; fit, then, as the JAX package, the
     DemoSuite: test_model on the test split and run() (demo samples, OBJ
-    files under <workdir>/<name>/).
+    files under <workdir>/<name>/). The JAX package's production setting
+    is `--compute_dtype bfloat16 --batch_size 16` (f32 parameters);
+    `--opt_state_dtype bfloat16` keeps the momentum in bf16; `--restart 0`
+    resumes from the newest checkpoint of the run (either package's) and
+    trains --num_epochs more; `--profile_steps N` writes a trace of N steps
+    to <workdir>/<name>/profile/trace.json.
   * test: restore the newest checkpoint of <workdir>/<name> (written by
     either package) and run DemoSuite.test_model.
   * demo: restore it and run DemoSuite.run() (sample_vary_pose and
@@ -67,8 +72,8 @@ def load_bodydata(cfg: CAPEConfig, datadir_root: str = "data/datasets") -> BodyD
         return BodyData.from_packed(data_dir, pose_type=cfg.pose_type)
     print(
         f"WARNING: packed dataset {data_dir!r} not found — using a synthetic "
-        "stand-in dataset (pack the CAPE release with cape_tpu.data.packer "
-        "for real training)",
+        "stand-in dataset (pack the CAPE release with "
+        "`python -m cape_tpu_torch.data.packer` for real training)",
         flush=True,
     )
     return synthetic_bodydata(

@@ -20,6 +20,12 @@ from torch import nn
 _KEYSTR_PART = re.compile(r"\['([^']*)'\]")
 
 
+def jax_keypath(name: str) -> str:
+    """A module path as the JAX package's keypath string:
+    `generator.decoder.fc1.kernel` -> `['generator']['decoder']['fc1']['kernel']`."""
+    return "".join(f"['{p}']" for p in name.split("."))
+
+
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():

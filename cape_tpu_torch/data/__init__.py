@@ -1,1 +1,2 @@
-"""Datasets: the packed-array wrapper, batch streams and synthetic data."""
+"""Datasets: the packer and its split configurations, the packed-array
+wrapper, batch streams and synthetic data."""

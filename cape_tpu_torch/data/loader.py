@@ -123,3 +123,8 @@ class BatchStream:
             got += take
             self._pos += take
         return out
+
+    def skip(self, n_batches: int) -> None:
+        """Advance past n_batches batches without materializing them (resume
+        from a checkpointed step)."""
+        self._pos += int(n_batches) * self.batch_size

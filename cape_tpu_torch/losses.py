@@ -4,13 +4,15 @@ Counterpart of `cape_tpu.losses`, term for term: masked L1/huber/L2
 reconstruction, the KL latent loss with the clamped exp, the edge-length
 loss through the banded edge operator, label-smoothed sigmoid-CE GAN losses
 and the FC-kernel L2 regularization with the reference's effective
-coefficient reg^2/2 (see the JAX module's notes on the kept quirks). The
-face and vertex normal losses are not on the train step and are not ported.
+coefficient reg^2/2 (see the JAX module's notes on the kept quirks), and
+the face and vertex normal losses (off the train step in both packages).
 """
 
 from __future__ import annotations
 
 import torch
+
+from cape_tpu_torch.meshops.normals import face_normals, vertex_normals
 
 
 def reconstruction_loss_per_sample(pred, gt, mask=None, kind: str = "l1",
@@ -66,6 +68,25 @@ def edge_loss_indexed(pred, gt, edges):
     d = pred - gt
     edge_diff = d.index_select(-2, edges[:, 0].long()) - d.index_select(-2, edges[:, 1].long())
     return torch.linalg.vector_norm(edge_diff, dim=-1).mean()
+
+
+def _normal_dissimilarity(n_pred, n_gt):
+    """Mean of 1 - |cos| between normals over the non-degenerate gt ones."""
+    cos_abs = (n_pred * n_gt).sum(-1).abs()
+    valid = (n_gt.square().sum(-1) > 1e-14).to(cos_abs.dtype)
+    return ((1.0 - cos_abs) * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def face_normal_loss(pred, gt, faces):
+    """Cosine dissimilarity 1 - |cos| between pred and gt face normals,
+    averaged over non-degenerate gt faces (lib/losses.py:27-47)."""
+    return _normal_dissimilarity(face_normals(pred, faces), face_normals(gt, faces))
+
+
+def vertex_normal_loss(pred, gt, faces, ftov_op=None):
+    """Cosine dissimilarity between estimated vertex normals."""
+    return _normal_dissimilarity(vertex_normals(pred, faces, ftov_op),
+                                 vertex_normals(gt, faces, ftov_op))
 
 
 def _sigmoid_ce(logits, labels):

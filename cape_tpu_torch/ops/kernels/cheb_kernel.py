@@ -54,9 +54,11 @@ RB = 128
 # cheb2_banded_v3); of fused_cheb2 with a group of 1 (kernel 1's case) and
 # with a larger group (kernel 4's); of banded_apply_bm; of ring_cheb2 with
 # one row tile per block (kernel 5's case) and with two (kernel 6's). The
-# CPU/meta plain paths count in none of them.
+# CPU/meta plain paths count in none of them. bf16_launches counts the
+# band_apply launches (either direction) on bf16 tensors again.
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
 fused1_launches = 0
 fused_launches = 0
 bm_launches = 0
@@ -182,8 +184,9 @@ def band_apply(
     of the blocks (required there); CPU and meta tensors take
     band_apply_plain. A pack given is checked against the blocks on every
     device. A launch with an addend counts in `bwd_launches` (only the
-    backward of cheb2_banded_v3 passes one), else in `launches`."""
-    global launches, bwd_launches
+    backward of cheb2_banded_v3 passes one), else in `launches`; on bf16
+    tensors, also in `bf16_launches`."""
+    global launches, bwd_launches, bf16_launches
     if pack is not None or x.device.type not in ("cpu", "meta"):
         _check_pack("band_apply", pack, blocks, pad_left)
     if x.device.type in ("cpu", "meta"):
@@ -205,6 +208,7 @@ def band_apply(
         launches += 1
     else:
         bwd_launches += 1
+    bf16_launches += x.dtype == torch.bfloat16
     return y
 
 

@@ -1,1 +1,2 @@
-"""Training: schedules, the G/D optimizer, the GAN step, checkpoints, the loop."""
+"""Training: schedules, the G/D optimizer, the GAN step, checkpoints,
+metrics and TensorBoard events, the loop."""

@@ -1,23 +1,32 @@
 """The training loop.
 
-Counterpart of `cape_tpu.train.loop.Trainer`, lean: the train split lives
-on the device in the banded (RCM) vertex order and each step's batch is
-gathered there from two [batch] index vectors; G and D draw from
-independent index streams (seeds `seed` and `seed + 1`); the
-reparameterization noise comes from a `torch.Generator` on the device
-seeded from (seed, step). Losses are screened for non-finite values at
-least every `steps_per_dispatch` steps (the one host sync of the loop),
-the val split is evaluated and a checkpoint written at each epoch end, and
-metrics go to `<workdir>/<name>/metrics.jsonl`.
+Counterpart of `cape_tpu.train.loop.Trainer`: the train split lives on the
+device in the banded (RCM) vertex order and each step's batch is gathered
+there from two [batch] index vectors; G and D draw from independent index
+streams (seeds `seed` and `seed + 1`); the reparameterization noise comes
+from a `torch.Generator` on the device seeded from (seed, step). Losses are
+screened for non-finite values at least every `steps_per_dispatch` steps
+(the one host sync of the loop), the val split is evaluated and the whole
+train state checkpointed at each epoch end, metrics go to
+`<workdir>/<name>/metrics.jsonl` (and, with cfg.tensorboard, to TensorBoard
+events beside it, with each checkpoint's parameter histograms), and a
+finished run draws its dashboard (`tools.plot_metrics`).
 
-Not ported: resume (optimizer state is not checkpointed yet), the K-step
-scan of the JAX package (it exists to save round trips to a remote TPU),
-TensorBoard events, profiling and data parallelism.
+Restart semantics follow the reference (lib/models.py:852-866), as the JAX
+package's: restart=True wipes the run directory; restart=False resumes from
+the newest checkpoint (the port's or the JAX package's), skips both index
+streams to its step and trains cfg.num_epochs more epochs, so a run
+stopped and resumed takes the steps an uninterrupted run takes.
+cfg.profile_steps > 0 captures that many steps after the first of the run
+with torch.profiler (`<run>/profile/trace.json`).
+
+Not ported: the K-step scan of the JAX package (it exists to save round
+trips to a remote TPU) and data parallelism.
 """
 
 from __future__ import annotations
 
-import json
+import contextlib
 import os
 import shutil
 import time
@@ -29,7 +38,9 @@ from cape_tpu_torch.core.config import CAPEConfig
 from cape_tpu_torch.data.loader import BatchStream, BodyData
 from cape_tpu_torch.models.cape import CAPE
 from cape_tpu_torch.ops.sparse import GraphContext
+from cape_tpu_torch.tools.plot_metrics import plot_metrics
 from cape_tpu_torch.train import checkpoint as ckpt
+from cape_tpu_torch.train.metrics import MetricsLogger, profile_steps
 from cape_tpu_torch.train.optim import Optimizer
 from cape_tpu_torch.train.step import TrainState, eval_step, train_step
 
@@ -42,55 +53,8 @@ def noise(shape, device, *key: int) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device)
 
 
-class EMA:
-    """Exponential moving average, decay 0.9 like the reference."""
-
-    def __init__(self, decay: float = 0.9):
-        self.decay = decay
-        self.value: float | None = None
-
-    def update(self, x: float) -> float:
-        self.value = x if self.value is None else self.decay * self.value + (1 - self.decay) * x
-        return self.value
-
-
-class MetricsLogger:
-    """Append-only JSONL metrics of a run, with EMA-smoothed G/D losses."""
-
-    def __init__(self, run_dir: str, filename: str = "metrics.jsonl"):
-        os.makedirs(run_dir, exist_ok=True)
-        self.path = os.path.join(run_dir, filename)
-        self._fh = open(self.path, "a")
-        self.ema_g = EMA()
-        self.ema_d = EMA()
-        self.t0 = time.time()
-
-    def log(self, step: int, payload: dict, echo: bool = False) -> None:
-        record = {"step": int(step), "t": round(time.time() - self.t0, 3)}
-        record.update({k: float(v) if hasattr(v, "__float__") else v for k, v in payload.items()})
-        self._fh.write(json.dumps(record) + "\n")
-        self._fh.flush()
-        if echo:
-            print(" ".join(
-                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                for k, v in record.items() if k != "t"
-            ), flush=True)
-
-    def close(self) -> None:
-        self._fh.close()
-
-
 def _unsupported(cfg: CAPEConfig) -> list[str]:
-    missing = []
-    if not cfg.restart:
-        missing.append("restart=False (resume: optimizer state is not checkpointed yet)")
-    if cfg.data_parallel > 1:
-        missing.append("--data_parallel (one device per run)")
-    if cfg.compute_dtype != "float32":
-        missing.append(f"training in compute_dtype={cfg.compute_dtype!r}")
-    if cfg.profile_steps:
-        missing.append("profile_steps (trace capture)")
-    return missing
+    return ["--data_parallel (one device per run)"] if cfg.data_parallel > 1 else []
 
 
 class Trainer:
@@ -139,35 +103,61 @@ class Trainer:
             out[f"{k}_d"] = v.index_select(0, idd)
         return out
 
+    def init_or_restore(self) -> int:
+        """restart=True wipes the run directory; restart=False restores the
+        newest readable checkpoint into the train state. Returns the step
+        the run starts at."""
+        if self.cfg.restart:
+            shutil.rmtree(self.run_dir, ignore_errors=True)
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+        else:
+            path = ckpt.restore_latest(self.ckpt_dir, self.state)
+            if path is not None:
+                print(f"resumed from {path} at step {self.state.step}", flush=True)
+        return self.state.step
+
     def fit(self):
-        """Train for cfg.num_epochs. Returns (val recon losses, sec/step)."""
+        """Train for cfg.num_epochs (more, on a resumed run). Returns (val
+        recon losses, sec/step)."""
         cfg = self.cfg
         seed = cfg.seed
-        shutil.rmtree(self.run_dir, ignore_errors=True)  # restart=True semantics
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        logger = MetricsLogger(self.run_dir)
-        if cfg.tensorboard:
-            print("note: TensorBoard events are not ported to cape_tpu_torch; "
-                  f"metrics go to {logger.path}", flush=True)
+        start_step = self.init_or_restore()
+        logger = MetricsLogger(self.run_dir, tensorboard=cfg.tensorboard)
         n = len(self.data.disp_train)
         stream_g = BatchStream(n, cfg.batch_size, seed)
         stream_d = BatchStream(n, cfg.batch_size, seed + 1)
+        # the batches an uninterrupted run would take from here
+        stream_g.skip(start_step)
+        stream_d.skip(start_step)
         screen_every = max(1, cfg.steps_per_dispatch)
         eps_shape = (cfg.batch_size, cfg.nz)
+        end_step = start_step + self.num_steps
 
         val_losses = []
         pending: list[tuple[int, torch.Tensor]] = []
         t_start = time.time()
         t_mark, steps_since = time.perf_counter(), 0
+        profiler = contextlib.ExitStack()
+        profiled = 0
         try:
-            for step in range(self.num_steps):
+            for step in range(start_step, end_step):
+                done = step - start_step
+                # the trace takes the steps after the run's first (cold) one,
+                # unless the run has only one
+                capture = profiled < cfg.profile_steps and (done > 0 or self.num_steps == 1)
+                if capture and profiled == 0:
+                    profiler.enter_context(profile_steps(os.path.join(self.run_dir, "profile")))
                 batch = self._gather(stream_g.next_indices(), stream_d.next_indices())
                 metrics, _ = train_step(
                     self.state, self.ctx, batch, noise(eps_shape, self.device, seed, step)
                 )
+                if capture:
+                    profiled += 1
+                    if profiled == cfg.profile_steps:
+                        profiler.close()
                 pending.append((step, torch.stack([metrics["loss_g"], metrics["loss_d"]])))
                 steps_since += 1
-                epoch_end = (step + 1) % self.steps_per_epoch == 0 or step + 1 == self.num_steps
+                epoch_end = (done + 1) % self.steps_per_epoch == 0 or step + 1 == end_step
                 if len(pending) >= screen_every or epoch_end:
                     self._screen(pending)
                     pending = []
@@ -176,7 +166,7 @@ class Trainer:
                 if not epoch_end:
                     continue
                 step_ms = 1000.0 * (time.perf_counter() - t_mark) / steps_since
-                epoch = (step + 1) // self.steps_per_epoch
+                epoch = (done + 1) // self.steps_per_epoch
                 m = {k: float(v) for k, v in metrics.items()}
                 m["loss_g_ema"] = logger.ema_g.update(m["loss_g"])
                 m["loss_d_ema"] = logger.ema_d.update(m["loss_d"])
@@ -184,14 +174,20 @@ class Trainer:
                 val_losses.append(val["recon"])
                 m.update({f"val_{k}": v for k, v in val.items()})
                 m["epoch"] = epoch
-                m["lr_g"] = float(self.state.tx.sched["g"](step))
-                m["sec_per_step"] = (time.time() - t_start) / (step + 1)
+                # the lr of this step's update: the schedule at the count before it
+                m["lr_g"] = float(self.state.tx.sched["g"](self.state.tx.count["g"] - 1))
+                m["sec_per_step"] = (time.time() - t_start) / (done + 1)
                 m["step_ms"] = step_ms  # train steps only: no eval, no checkpoint
                 logger.log(step, m, echo=True)
-                ckpt.save_checkpoint(self.ckpt_dir, self.model, step + 1, keep=cfg.checkpoint_keep)
+                ckpt.save_checkpoint(self.ckpt_dir, self.state, step + 1, keep=cfg.checkpoint_keep)
+                if logger.tb is not None:
+                    logger.tb.add_param_histograms(step + 1, self.model.state_dict())
                 t_mark, steps_since = time.perf_counter(), 0
         finally:
+            profiler.close()
             logger.close()
+        if val_losses:  # an epoch ended, so metrics.jsonl has a record
+            plot_metrics(self.run_dir)
         return val_losses, (time.time() - t_start) / max(self.num_steps, 1)
 
     def _screen(self, pending: list[tuple[int, torch.Tensor]]) -> None:

@@ -9,6 +9,14 @@ sees detached generator outputs and condition embeddings (`.detach()`
 where JAX writes `stop_gradient`). JAX's XLA merges the forwards of
 d_fake_for_g and d_fake_for_d (the same computation in the forward pass);
 eager PyTorch runs all three discriminator forwards.
+
+In compute_dtype=bfloat16 the parameters and their gradients stay f32 (the
+model casts each parameter where it is used) and every metric keeps the
+dtype JAX's promotion gives it: recon, kl, edge, the GAN terms and loss_d
+are bf16 0-d tensors, reg_g is f32, and loss_g becomes f32 where reg_g
+joins its bf16 sum (0-d tensors of one kind promote to the wider dtype in
+torch, as in JAX). Each mean over a bf16 tensor accumulates in f32 and
+rounds once, as JAX's.
 """
 
 from __future__ import annotations

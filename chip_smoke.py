@@ -121,6 +121,28 @@ result line):
      banded mode permutes it): op_mode="ell" (0) and op_mode="dense" (0).
      Phase 3 holds the new apply shapes (FAMILY_APPLIES) to the plain
      version.
+ 18. train-prod (after phase 17): the JAX package's production training
+     setup on the flagship, held to tests/data/torch_golden_bf16.npz
+     (written by the JAX package: its bf16 steps beside its f32 steps on
+     the same inputs, and the bounds derived from the difference), each
+     main path with the counts at 0 just before and read just after.
+     (a) bf16 compute at batch 32: two GAN steps on the kernel route, 17 +
+     17 band_apply launches a step, all bf16 (`bf16_launches`), and on the
+     plain route with none; each held to JAX's bf16 steps (every metric
+     within its bound and of JAX's dtype, each leaf's step-2 update summary
+     within its player's bound) and to each other by bounds of their own
+     (every metric within two bf16 ulps, every leaf's update summary and
+     each routed conv's update whole within 5e-2 of its max|update|).
+     (b) bf16 at batch 16, JAX's headline: no launch, held to its golden.
+     (c) bf16 optimizer state at batch 32, held to its golden; the steps'
+     peak device memory (torch.cuda.max_memory_allocated) and the state's
+     bytes beside the f32 state's. (d) apps.main.run in bf16 at batch 32 (synthetic n_train=64,
+     one step an epoch): 2 epochs with profile_steps=2, and 1 epoch resumed
+     with restart=False for 1 more: the final checkpoints within 1e-6 *
+     max|leaf| (bit-equal expected), the TensorBoard events read back
+     (loss_g scalars, parameter histograms), the profiler trace naming the
+     band-gather kernel. (e) the step times of bf16 at batch 16, bf16 at
+     batch 32 on both routes and f32 at batch 16, in turns, 6 rounds of 2.
  14. lab (last): the kernel lab's conv, conv --padded 1, layout, fuse and
      bmapply with the counts at 0 just before; its errors within their
      limits; the v2, v1, v5 and bm kernels launched.
@@ -132,8 +154,10 @@ the kernels and the device line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import glob
 import io
 import json
 import math
@@ -157,6 +181,7 @@ GOLDEN_DEMO = os.path.join(ROOT, "tests", "data", "torch_golden_demo.npz")
 PRESET_CMR = os.path.join(ROOT, "configs", "CAPE_nz18_pose24_clotype8_male.yaml")
 PRESET_DEFAULT = os.path.join(ROOT, "configs", "default_config.yaml")
 GOLDEN_FAMILIES = os.path.join(ROOT, "tests", "data", "torch_golden_families.npz")
+GOLDEN_BF16 = os.path.join(ROOT, "tests", "data", "torch_golden_bf16.npz")
 # no SMPL model file: the demo suites export unposed meshes
 NO_SMPL = os.path.join(ROOT, "build", "no_smpl_model")
 GATHER_SOURCE = "cape_tpu_torch/csrc/band_gather.cu"   # rows 2, 2b and 3
@@ -193,6 +218,18 @@ CONCAT_DECODE = [(896, 576), (896, 320), (1792, 320), (1792, 192), (3456, 192), 
 TRAIN_APPLIES = {**{pc: 2 for pc in ON_PATH}, PRED: 3}
 FWD_PER_STEP = BWD_PER_STEP = sum(TRAIN_APPLIES.values())   # 17
 FWD_PER_EVAL = 14   # encode + decode of one eval batch
+# phase 18's bf16 kernel route against its plain route. They run the same
+# code but rows 2 and 2b, which round once where the plain apply rounds
+# each term, and cuBLAS's summation order: every metric within two bf16
+# ulps of the plain route's (relative); every leaf's step-2 update summary,
+# and the whole update of each routed conv's leaves, within
+# BF16_ROUTES_UPDATE of the leaf's max|update| (hold_updates). Seen on an
+# NVIDIA H100 80GB HBM3 at 700 W: metrics one ulp apart at most (6.9e-3 at
+# kl), leaf summaries 1.44e-2 apart at most, the routed leaves' elements
+# 1.68e-2 (an unrouted dense leaf's reach 4.5e-2: rounding noise carried
+# through the chain).
+BF16_ROUTES_METRIC = 2.0 ** -6
+BF16_ROUTES_UPDATE = 5e-2
 # (C, F) of the flagship's K=2 convs at each padded row count P (encoder and
 # decoder; at 512 the discriminator's pred conv), and C = F = 64 at each P:
 # the shapes the fused conv kernel is held to its plain version at
@@ -222,8 +259,8 @@ def log(*a):
 
 
 # the launch counts of the kernel wrappers (cape_tpu_torch.ops.kernels.cheb_kernel)
-COUNTS = ("launches", "bwd_launches", "fused1_launches", "fused_launches", "bm_launches",
-          "ring_launches", "ring2_launches")
+COUNTS = ("launches", "bwd_launches", "bf16_launches", "fused1_launches", "fused_launches",
+          "bm_launches", "ring_launches", "ring2_launches")
 
 
 def zero_counts() -> None:
@@ -915,7 +952,8 @@ def held_metrics(name, got: dict, ref: dict, rel=1e-4):
 
 def hold_updates(name, got: dict, keys, summary, whole, rel=1e-3, tie_rel=0.25):
     """Per-leaf step-2 updates against a reference given as per-leaf
-    [sum, sum of squares, max|.|] and, where present, whole arrays.
+    [sum, sum of squares, max|.|] and, where present, whole arrays. `rel`
+    is one bound for every leaf or one per leaf (in the order of `keys`).
 
     Per leaf: max|.| within rel of the reference's, the sum of squares
     within 2 * rel of its own, the sum within rel * sqrt(n * sum of
@@ -929,7 +967,8 @@ def hold_updates(name, got: dict, keys, summary, whole, rel=1e-3, tie_rel=0.25):
     1.6e-3, kernel route vs plain route). The five worst leaves, and every leaf out of bounds, are
     logged before a failure is raised."""
     rows = []
-    for k, (r_sum, r_sq, r_max) in zip(keys, summary):
+    rels = np.broadcast_to(np.asarray(rel, np.float64), (len(keys),))
+    for k, (r_sum, r_sq, r_max), rel in zip(keys, summary, rels):
         u = got[k].astype(np.float64)
         errs = {
             "max": abs(np.abs(u).max() - r_max) / r_max,
@@ -952,8 +991,10 @@ def hold_updates(name, got: dict, keys, summary, whole, rel=1e-3, tie_rel=0.25):
     for _, k, errs, _ in shown:
         log(f"  {name} {k}: " + " ".join(f"{n} {v:.3g}" for n, v in errs.items()))
     ties = sum(r[2].get("n_elem_out", 0) for r in rows)
+    lo, hi = rels.min(), rels.max()
+    bounds = f"{lo:.4g}" if lo == hi else f"{lo:.4g}-{hi:.4g}"
     log(f"{name}: {len(keys)} leaves ({len(whole)} whole), worst {rows[0][0]:.3e} at "
-        f"{rows[0][1]} (bound {rel}, relative to the leaf's max|update|); "
+        f"{rows[0][1]} (bound {bounds}, relative to the leaf's max|update|); "
         f"{ties} tie elements in all")
     if bad:
         raise AssertionError(f"{name}: updates of {bad} exceed the bound")
@@ -977,11 +1018,12 @@ def check_fingerprint(name, model, golden) -> None:
         raise AssertionError(f"{name}: parameters from seed 0 differ from the golden's")
 
 
-def gan_steps(cfg, c, batches, eps, spe, golden):
+def gan_steps(cfg, c, batches, eps, spe, golden, dtypes: dict | None = None):
     """GAN steps of a fresh seed-0 model on context c, one per batch and eps,
     its parameters checked against `golden`'s fingerprint. Returns (train
     state, the golden's metrics per step, the last step's updates as numpy,
-    band_apply (forward, backward) launches per step)."""
+    band_apply (forward, backward) launches per step); fills `dtypes`, if
+    given, with each metric's dtype name."""
     from cape_tpu_torch.models.cape import CAPE
     from cape_tpu_torch.ops.kernels import cheb_kernel
     from cape_tpu_torch.train.optim import Optimizer
@@ -998,13 +1040,15 @@ def gan_steps(cfg, c, batches, eps, spe, golden):
         torch.cuda.synchronize()
         counts.append((cheb_kernel.launches - f0, cheb_kernel.bwd_launches - b0))
         metrics.append({k: float(m[k]) for k in names})
+        if dtypes is not None:
+            dtypes.update({k: _name(m[k].dtype) for k in names})
     for i, m in enumerate(metrics):
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"{cfg.name} step {i + 1}: non-finite metrics {m}")
     return state, metrics, {k: v.cpu().numpy() for k, v in updates.items()}, counts
 
 
-def golden_batches(golden, perm):
+def golden_batches(golden, perm, batch_size: int = 32):
     """The train golden's batch recipe on the device: synthetic data from
     its seed in the context's vertex order, G and D index streams seeded
     seed and seed + 1."""
@@ -1015,9 +1059,9 @@ def golden_batches(golden, perm):
     data = synthetic_bodydata(n_train=int(golden["n_train"]), n_test=int(golden["n_test"]),
                               num_verts=6890, seed=seed)
     n = len(data.disp_train)
-    if n // 32 != int(golden["steps_per_epoch"]):
+    if n // batch_size != int(golden["steps_per_epoch"]):
         raise AssertionError(f"{n} train rows: not the golden's steps per epoch")
-    sg, sd = BatchStream(n, 32, seed), BatchStream(n, 32, seed + 1)
+    sg, sd = BatchStream(n, batch_size, seed), BatchStream(n, batch_size, seed + 1)
     disp = data.disp_train[:, perm]
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
     batches = []
@@ -1028,7 +1072,7 @@ def golden_batches(golden, perm):
             "clo_g": dev(data.clo_train[ig]), "disp_d": dev(disp[idd]),
             "pose_d": dev(data.pose_train[idd]), "clo_d": dev(data.clo_train[idd]),
         })
-    return batches, n // 32
+    return batches, n // batch_size
 
 
 def train_phase(cfg, ctx, ctx_plain, smi):
@@ -1305,6 +1349,8 @@ def demo_phase(smi):
     from cape_tpu_torch.models.cape import CAPE
     from cape_tpu_torch.models.gmm import GMM
     from cape_tpu_torch.train.checkpoint import save_checkpoint
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState
 
     golden = np.load(GOLDEN_DEMO)
     cfg = load_config(PRESET_NZ18, batch_size=32, compute_dtype="float32",
@@ -1316,7 +1362,8 @@ def demo_phase(smi):
     workdir = tempfile.mkdtemp(prefix="chip_smoke_demo_")
     launches, seconds = 0, {}
     try:
-        save_checkpoint(os.path.join(workdir, cfg.name, "checkpoints"), model, step=0)
+        save_checkpoint(os.path.join(workdir, cfg.name, "checkpoints"),
+                        TrainState(model, Optimizer(cfg, 1)), step=0)
         data = synthetic_bodydata(n_train=int(golden["n_train"]), n_test=int(golden["n_test"]),
                                   num_verts=6890, seed=int(golden["seed"]))
         log(f"demo phase set-up (nz18 context, checkpoint, data): "
@@ -1630,6 +1677,276 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
     return fwd, bwd, times
 
 
+def source_leaves(t: torch.Tensor) -> list[torch.Tensor]:
+    """The autograd leaves (parameters) that `t` is computed from: t itself
+    when it is a leaf, else the variables of the AccumulateGrad nodes that
+    its graph reaches (a folded conv passes a cast and sliced weight)."""
+    if t.grad_fn is None:
+        return [t]
+    leaves, todo = [], [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if hasattr(fn, "variable"):
+            leaves.append(fn.variable)
+        elif fn is not None:
+            todo.extend(f for f, _ in fn.next_functions)
+    return leaves
+
+
+@contextlib.contextmanager
+def kernel_route_weights(seen: list):
+    """Append to `seen` the weight of every conv that the routing gate
+    (ops.cheb) sends to the kernel route while the block runs."""
+    from cape_tpu_torch.ops.kernels import cheb_kernel
+
+    v3 = cheb_kernel.cheb2_banded_v3
+
+    def spy(x, band_op, weight):
+        seen.append(weight)
+        return v3(x, band_op, weight)
+
+    cheb_kernel.cheb2_banded_v3 = spy
+    try:
+        yield seen
+    finally:
+        cheb_kernel.cheb2_banded_v3 = v3
+
+
+def bf16_view(golden, prefix: str) -> dict:
+    """One configuration of the bf16 golden (b32, b16, opt) by its own
+    names, with the shared parameter fingerprint and leaf names."""
+    view = golden_view(golden, prefix)
+    view.update({k: golden[k] for k in ("param_keys", "param_sums", "metric_names")})
+    return view
+
+
+def hold_bf16(name, runs_metrics, dtypes, updates, golden) -> None:
+    """A bf16 run held to JAX's bf16 golden by the golden's derived bounds
+    (tests/make_torch_golden.py bf16_bounds: from bf16's effect in JAX,
+    its bf16 step against its f32 step): every metric of both steps within
+    its bound, relative, and of JAX's dtype; each leaf's step-2 update
+    summary within its bound (hold_updates)."""
+    names = [str(k) for k in golden["metric_names"]]
+    want = dict(zip(names, (str(d) for d in golden["metric_dtypes"])))
+    if dtypes != want:
+        raise AssertionError(f"{name}: metric dtypes {dtypes}, JAX's {want}")
+    for i, m in enumerate(runs_metrics):
+        ref, bound = golden["metrics"][i], golden["metric_bound"][i]
+        errs = np.array([abs(m[k] - r) / abs(r) for k, r in zip(names, ref)])
+        log(f"{name} step {i + 1} vs JAX bf16 golden: " + " ".join(
+            f"{k}={m[k]:.7g}/{r:.7g} ({e:.2e} of {b:.2e})"
+            for k, r, e, b in zip(names, ref, errs, bound)))
+        if not (errs <= bound).all():
+            raise AssertionError(f"{name} step {i + 1}: metrics outside the derived bounds")
+    hold_updates(f"{name} step-2 updates vs JAX bf16 golden", updates,
+                 [str(k) for k in golden["param_keys"]], golden["update_summary"], {},
+                 rel=golden["update_bound"])
+
+
+def resume_phase(cfg, smi) -> tuple[dict, dict]:
+    """Phase 18 (d): the train mode through apps.main.run in bf16 at batch 32
+    on synthetic data (one step per epoch): 2 epochs with TensorBoard and
+    profile_steps=2; 1 epoch, then 1 more with restart=False; the counts at
+    0 just before each run and read just after. The resumed run's final
+    checkpoint within 1e-6 * max|leaf| of the uninterrupted run's (bit-equal
+    expected); the event file parsed by the port's read_events, with loss_g
+    scalars and parameter histograms; the trace naming the band-gather
+    kernel. Returns (launch counts by run, what was found)."""
+    from cape_tpu_torch.apps.main import run
+    from cape_tpu_torch.data.synthetic import synthetic_bodydata
+    from cape_tpu_torch.train.checkpoint import latest_checkpoint
+    from cape_tpu_torch.train.tb_events import read_events
+
+    data = synthetic_bodydata(n_train=64, n_test=32, num_verts=6890, seed=cfg.seed)
+    base = cfg.replace(mode="train", smpl_model_folder=NO_SMPL, save_obj=False)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    plan = [("whole", dict(name=f"{cfg.name}_whole", num_epochs=2, profile_steps=2)),
+            ("first", dict(name=f"{cfg.name}_split", num_epochs=1)),
+            ("resumed", dict(name=f"{cfg.name}_split", num_epochs=1, restart=False))]
+    counts, trainers = {}, {}
+    try:
+        for label, change in plan:
+            # ---- a train main path: every count at 0 just before, read just after
+            zero_counts()
+            t0 = time.perf_counter()
+            result = run(base.replace(**change), workdir, device="cuda", data=data)
+            torch.cuda.synchronize()
+            counts[label] = read_counts()
+            trainers[label] = result.trainer
+            calls = dict(result.demos.engine.calls)
+            steps = result.trainer.num_steps
+            c = counts[label]
+            demo = 7 * (calls["encode"] + calls["decode"])
+            want = (FWD_PER_STEP * steps + FWD_PER_EVAL * change["num_epochs"] + demo,
+                    BWD_PER_STEP * steps)
+            log(f"resume, {label} run(): {time.perf_counter() - t0:.2f} s, {steps} steps to step "
+                f"{result.trainer.state.step}, DemoSuite calls {calls}; counts {json.dumps(c)}")
+            if ((c["launches"], c["bwd_launches"]) != want
+                    or c["bf16_launches"] != c["launches"] + c["bwd_launches"]
+                    or not only(c, "launches", "bwd_launches", "bf16_launches")):
+                raise AssertionError(f"resume {label}: counts {c}, expected {want}, all bf16")
+        whole, split = trainers["whole"], trainers["resumed"]
+        a, b = latest_checkpoint(whole.ckpt_dir), latest_checkpoint(split.ckpt_dir)
+        if os.path.basename(a) != os.path.basename(b) or split.state.step != 2:
+            raise AssertionError(f"resume: checkpoints {a} and {b}")
+        worst, equal = 0.0, True
+        with np.load(a) as za, np.load(b) as zb:
+            if sorted(za.files) != sorted(zb.files):
+                raise AssertionError("resume: the checkpoints hold other keys")
+            for k in za.files:
+                x, y = za[k].astype(np.float64), zb[k].astype(np.float64)
+                equal = equal and np.array_equal(x, y)
+                scale = max(float(np.abs(x).max()), 1e-30)
+                worst = max(worst, float(np.abs(x - y).max()) / scale)
+            n_keys = len(za.files)
+        log(f"resume: final checkpoint of 1 + 1 epochs against 2 epochs, {n_keys} leaves: "
+            f"bit-equal {equal}, worst {worst:.3e} of max|leaf| (limit 1e-6)")
+        if not worst <= 1e-6:
+            raise AssertionError("resume: the resumed run's checkpoint differs")
+        events = [e for p in sorted(glob.glob(os.path.join(whole.run_dir,
+                                                           "events.out.tfevents.*")))
+                  for e in read_events(p)]
+        loss_steps = [e["step"] for e in events if "train/loss_g" in e["scalars"]]
+        hists = sorted({t for e in events for t in e["histograms"]})
+        log(f"resume: TensorBoard events of the 2-epoch run: {len(events)} records, loss_g at "
+            f"steps {loss_steps}, {len(hists)} parameter histograms")
+        if loss_steps != [0, 1] or "params/generator/decoder/fc1/kernel" not in hists:
+            raise AssertionError("resume: TensorBoard events lack loss_g or histograms")
+        with open(os.path.join(whole.run_dir, "profile", "trace.json")) as f:
+            names = {str(ev.get("name", "")) for ev in json.load(f)["traceEvents"]}
+        gather = sorted(n for n in names if "band_gather_kernel" in n)
+        log(f"resume: profiler trace of the 2-epoch run: {len(names)} event names, "
+            f"band-gather kernels {gather}")
+        if not gather:
+            raise AssertionError("resume: the profiler trace names no band_gather_kernel")
+        found = {"bit_equal": equal, "worst_rel": worst, "tb_records": len(events),
+                 "histograms": len(hists), "trace_kernels": gather}
+        return counts, found
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def train_prod_phase(cfg, ctx, smi):
+    """Phase 18: the JAX package's production training setup on the
+    flagship, held to tests/data/torch_golden_bf16.npz (written by the JAX
+    package), each main path with the counts at 0 just before and read just
+    after. (a) bf16 compute at batch 32, two GAN steps on the kernel route
+    (17 + 17 band_apply launches a step, all bf16) and the plain route
+    (none), each held to JAX's bf16 golden by the derived bounds and to the
+    other by BF16_ROUTES_METRIC and BF16_ROUTES_UPDATE; (b) bf16 at batch
+    16 (JAX's headline; no launch); (c) bf16 optimizer state at batch 32,
+    with the peak memory of the steps beside the f32 state's; (d) resume_phase; (e) the step times, the
+    routes in turns, 6 rounds of 2 steps. Returns (forward and backward
+    launches, the records)."""
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.tools.perf_lab import time_routes
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState, train_step
+
+    gold = np.load(GOLDEN_BF16)
+    bcfg = cfg.replace(compute_dtype="bfloat16", name="chip_smoke_bf16")
+    t_phase = t0 = time.perf_counter()
+    ctx_bf = build_context(bcfg, device="cuda")
+    ctx_bf_plain = build_context(bcfg.replace(use_pallas=False), device="cuda")
+    log(f"bf16 graph contexts built in {time.perf_counter() - t0:.2f} s")
+    fwd = bwd = 0
+    runs, records = {}, {}
+    plan = [("b32 kernel", "b32", bcfg, ctx_bf, (FWD_PER_STEP, BWD_PER_STEP)),
+            ("b32 plain", "b32", bcfg, ctx_bf_plain, (0, 0)),
+            ("b16", "b16", bcfg.replace(batch_size=16), ctx_bf, (0, 0)),
+            ("opt-state bf16", "opt", bcfg.replace(opt_state_dtype="bfloat16"), ctx_bf,
+             (FWD_PER_STEP, BWD_PER_STEP))]
+    for label, prefix, rcfg, c, per_step in plan:
+        golden = bf16_view(gold, prefix)
+        if str(golden["opt_state_dtype"]) != rcfg.opt_state_dtype:
+            raise AssertionError(f"{label}: the golden's opt_state_dtype is "
+                                 f"{golden['opt_state_dtype']}")
+        batch_size = int(golden["batch"])
+        batches, spe = golden_batches(golden, c.perm0, batch_size)
+        eps = torch.from_numpy(golden["eps"]).cuda()
+        dtypes = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        # ---- the main path: every count at 0 just before, read just after
+        zero_counts()
+        with kernel_route_weights([]) as routed:
+            state, metrics, updates, counts = gan_steps(rcfg, c, batches, eps, spe, golden,
+                                                        dtypes)
+        total = read_counts()
+        peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+        moments = [t for bufs in state.tx.buffers.values() for t in bufs.values()]
+        state_mb = sum(t.numel() * t.element_size() for t in moments) / 2**20
+        log(f"{label} (bf16 compute, batch {batch_size}, {rcfg.opt_state_dtype} optimizer "
+            f"state): band_apply launches (forward, backward) per step {counts}; all counts "
+            f"{json.dumps(total)}; steps' peak memory {peak_mb:.3f} MiB above the "
+            f"{mem0 / 2**20:.3f} allocated before, optimizer state {state_mb:.3f} MiB "
+            f"({sorted({_name(t.dtype) for t in moments})})")
+        if counts != [per_step] * 2 or total["bf16_launches"] != 2 * sum(per_step):
+            raise AssertionError(f"{label}: launches {counts} ({total}), expected {per_step} "
+                                 "a step, all bf16")
+        if not only(total, "launches", "bwd_launches", "bf16_launches"):
+            raise AssertionError(f"{label} launched {total}")
+        fwd += total["launches"]
+        bwd += total["bwd_launches"]
+        hold_bf16(f"{label}", metrics, dtypes, updates, golden)
+        runs[label] = (state, c, batches[0], eps[0], metrics, updates, routed)
+        records[label] = {"launches_per_step": counts, "peak_mb": peak_mb, "state_mb": state_mb}
+    golden = bf16_view(gold, "b32")
+    kernel, plain = runs["b32 kernel"], runs["b32 plain"]
+    for i in range(2):
+        held_metrics(f"b32 step {i + 1}, kernel route vs plain route", kernel[4][i],
+                     plain[4][i], rel=BF16_ROUTES_METRIC)
+    # the leaves of the convs on the kernel route (the G loss's view of the
+    # discriminator is detached, so its pred conv is found through D's loss)
+    sources = [v for w in kernel[6] for v in source_leaves(w)]
+    routed = sorted(n for n, p in kernel[0].model.named_parameters()
+                    if any(p is v for v in sources))
+    log(f"b32: {len(kernel[6])} convs on the kernel route in two steps, {len(routed)} "
+        f"leaves: {routed}")
+    if len(kernel[6]) != 2 * FWD_PER_STEP or plain[6]:
+        raise AssertionError("b32: the routed convs are not the launches")
+    keys = [str(k) for k in golden["param_keys"]]
+    plain_summary = np.stack([[u.sum(), np.square(u).sum(), np.abs(u).max()]
+                              for u in (plain[5][k].astype(np.float64) for k in keys)])
+    hold_updates("b32 step-2 updates, kernel route vs plain route", kernel[5], keys,
+                 plain_summary, {k: plain[5][k] for k in routed}, rel=BF16_ROUTES_UPDATE)
+    log(f"optimizer state, bf16 against f32 at batch 32 [{smi}]: "
+        f"{records['opt-state bf16']['state_mb']:.3f} against "
+        f"{records['b32 kernel']['state_mb']:.3f} MiB; the two steps' peak "
+        f"{records['opt-state bf16']['peak_mb']:.3f} against "
+        f"{records['b32 kernel']['peak_mb']:.3f} MiB (torch.cuda.max_memory_allocated)")
+
+    resume_counts, resume_found = resume_phase(bcfg, smi)
+    for c in resume_counts.values():
+        fwd += c["launches"]
+        bwd += c["bwd_launches"]
+
+    # ---- (e) step times: f32 at batch 16 beside the bf16 routes
+    golden16 = bf16_view(gold, "b16")
+    f32_16 = cfg.replace(batch_size=16)
+    batches16, spe16 = golden_batches(golden16, ctx.perm0, 16)
+    model = CAPE(f32_16).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
+    f32_state = TrainState(model, Optimizer(f32_16, spe16))
+    eps16 = torch.from_numpy(golden16["eps"]).cuda()
+    routes = {
+        "bf16 b16": runs["b16"][:4],
+        "bf16 b32 kernel": runs["b32 kernel"][:4],
+        "bf16 b32 plain": runs["b32 plain"][:4],
+        "f32 b16": (f32_state, ctx, batches16[0], eps16[0]),
+    }
+    times = time_routes({k: functools.partial(train_step, *v) for k, v in routes.items()},
+                        rounds=6, calls=2)
+    for route, t in times.items():
+        log(f"flagship train step, {route} [{smi}]: {t:.3f} ms (CUDA events, routes in turns, "
+            f"median of 6 rounds of 2 steps)")
+    records.update({"step_ms": times, "resume": resume_found,
+                    "resume_counts": resume_counts})
+    log(f"train-prod phase: {time.perf_counter() - t_phase:.2f} s")
+    return fwd, bwd, records
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_phase()
@@ -1729,10 +2046,13 @@ def main():
     mb_launches, mb_times = microbatch_phase(model, ctx, smi)
     demo_launches, demo_seconds = demo_phase(smi)
     fam_fwd, fam_bwd, fam_times = families_phase(cfg, ctx, smi)
+    prod_fwd, prod_bwd, prod_records = train_prod_phase(cfg, ctx, smi)
     log(f"main paths: serve {launches} band_apply launches; train mode {run_fwd} "
         f"band_apply and {run_bwd} band_apply_bwd launches; microbatch {mb_launches} and "
         f"demo {demo_launches} band_apply launches; families {fam_fwd} band_apply and "
-        f"{fam_bwd} band_apply_bwd launches")
+        f"{fam_bwd} band_apply_bwd launches; train-prod {prod_fwd} band_apply and {prod_bwd} "
+        "band_apply_bwd launches")
+    log(f"train-prod step times [{smi}]: " + json.dumps(prod_records["step_ms"]))
     log(f"families times [{smi}]: " + json.dumps(fam_times))
     log(f"serving latency under load [{smi}]: " + json.dumps(mb_times))
     log(f"DemoSuite modes, nz18 at batch 32 [{smi}]: " + json.dumps(demo_seconds))
@@ -1745,7 +2065,8 @@ def main():
                    "cheb2_window": {"records": ring_records, "main_path_launches": ring_counts},
                    "lab": lab_lines, "lab_launches": lab_counts,
                    "microbatch_latency": mb_times, "demo_mode_seconds": demo_seconds,
-                   "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times}}, f)
+                   "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times},
+                   "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records}}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -1753,9 +2074,9 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES,
-        # the forward launches of the serve, train-mode, microbatch, demo and
-        # families main paths
-        "launches": launches + run_fwd + mb_launches + demo_launches + fam_fwd,
+        # the forward launches of the serve, train-mode, microbatch, demo,
+        # families and train-prod main paths
+        "launches": launches + run_fwd + mb_launches + demo_launches + fam_fwd + prod_fwd,
         # worst f32 error over the batch-32 shapes of serving and training;
         # times and bounds summed over the seven band applies of one
         # batch-32 decode
@@ -1770,7 +2091,7 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES_BWD,
-        "launches": run_bwd + fam_bwd,
+        "launches": run_bwd + fam_bwd + prod_bwd,
         # worst f32 error of the addend variant over the train steps'
         # shapes (the CMR output conv's included); times and bounds summed
         # over the 17 backward applies of one flagship step

@@ -1,7 +1,7 @@
 """Write the golden files `chip_smoke.py` holds the PyTorch port to, from the
 JAX package on the CPU, for parameters made by the port.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_golden.py [serve] [train] [demo] [families]
+    JAX_PLATFORMS=cpu python tests/make_torch_golden.py [serve] [train] [demo] [families] [bf16]
 
 Serve and train use the flagship preset, demo the nz18 release preset, each
 at full width, f32, on JAX's plain banded
@@ -60,6 +60,20 @@ layer's output and the encoder's flatten are laid out by the coarsest
 level's vertex order, which the banded mode permutes, so the same
 parameters decode differently in the ELL and dense modes than in the
 banded mode.
+
+bf16 -> tests/data/torch_golden_bf16.npz: the flagship's production
+training setting, compute_dtype=bfloat16 (f32 parameters), two GAN steps
+by the train golden's recipe (batches at the run's batch size, eps
+default_rng(1) [2, batch, nz]; the noise enters in z_mean's dtype, as
+JAX's own sample_z draws it), in three configurations, keys "<prefix>:...":
+"b32" (batch 32, the kernel route's batch), "b16" (batch 16, JAX's
+headline) and "opt" (batch 32 with opt_state_dtype=bfloat16). Each keeps
+the eight metrics of both steps and their dtypes, the per-leaf summaries
+of the step-2 update, and the same of JAX's f32 steps (f32 compute and
+state) on the same inputs; from the two, the bounds a port's bf16 run is
+held by (`bf16_bounds`: twice bf16's effect in JAX itself, per metric and
+per player's leaves, at least one bf16 ulp of a metric and 1e-3 of a
+leaf's max|update|). No whole update is kept.
 """
 
 from __future__ import annotations
@@ -76,6 +90,13 @@ OUT_TRAIN = os.path.join(ROOT, "tests", "data", "torch_golden_train.npz")
 PRESET_NZ18 = os.path.join(ROOT, "configs", "CAPE-affineconv_nz18_pose24_clotype8_male.yaml")
 OUT_DEMO = os.path.join(ROOT, "tests", "data", "torch_golden_demo.npz")
 OUT_FAMILIES = os.path.join(ROOT, "tests", "data", "torch_golden_families.npz")
+OUT_BF16 = os.path.join(ROOT, "tests", "data", "torch_golden_bf16.npz")
+# the bf16 golden's configurations: key prefix -> (batch, overrides of the
+# bf16 run); each is held to the f32 run at its batch
+BF16_RUNS = {"b32": (32, {}), "b16": (16, {}), "opt": (32, {"opt_state_dtype": "bfloat16"})}
+# the least bound of a leaf's step-2 update, relative to its max|update|:
+# the f32 train golden's
+UPDATE_FLOOR = 1e-3
 # the families golden's presets: key prefix -> (preset, overrides)
 FAMILIES = {
     "cmr": (os.path.join(ROOT, "configs", "CAPE_nz18_pose24_clotype8_male.yaml"), {}),
@@ -111,8 +132,8 @@ def encode_inputs() -> np.ndarray:
     return (0.02 * np.random.default_rng(2).standard_normal((B, 6890, 3))).astype(np.float32)
 
 
-def train_eps(cfg) -> np.ndarray:
-    return np.random.default_rng(1).standard_normal((STEPS, B, cfg.nz)).astype(np.float32)
+def train_eps(cfg, batch_size: int = B) -> np.ndarray:
+    return np.random.default_rng(1).standard_normal((STEPS, batch_size, cfg.nz)).astype(np.float32)
 
 
 def update_summary(delta: np.ndarray) -> np.ndarray:
@@ -142,6 +163,48 @@ def update_spread(ref: dict, other: dict, whole_max: int) -> float:
     return float(worst)
 
 
+def bf16_ulp_rel(v: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at |v|, relative to |v| (2^-8 to 2^-7)."""
+    a = np.abs(np.asarray(v, np.float64))
+    return 2.0 ** (np.floor(np.log2(a)) - 7) / a
+
+
+def summary_spread(ref: np.ndarray, other: np.ndarray, sizes: np.ndarray) -> np.ndarray:
+    """Per leaf, how far the update summaries `other` ([L, 3]: sum, sum of
+    squares, max|.|) are from `ref`, by chip_smoke.py's hold_updates'
+    measures relative to the leaf's max|ref|: the error of max|.|, of the
+    sum of squares (over twice it) and of the sum (over sqrt(n * sum of
+    squares)); the largest of the three."""
+    r_sum, r_sq, r_max = ref.T
+    o_sum, o_sq, o_max = other.T
+    return np.max([np.abs(o_max - r_max) / r_max, np.abs(o_sq - r_sq) / (2 * r_sq),
+                   np.abs(o_sum - r_sum) / np.sqrt(sizes * r_sq)], axis=0)
+
+
+def bf16_bounds(metrics, f32_metrics, summary, f32_summary, keys, sizes):
+    """The bounds a bf16 step is held to JAX's bf16 step by, derived from
+    the size of bf16's effect in JAX itself: its bf16 step against its f32
+    step on the same inputs. Two bf16 implementations each round
+    differently from the f32 result, so their distance can reach twice that
+    effect. Per metric, relative: the larger of twice the metric's effect
+    and one bf16 ulp of its value (every metric is a sum of bf16 terms, and
+    the last rounding alone can part two implementations by an ulp). Per
+    leaf of the step-2 update, relative to its max|update| by
+    summary_spread: twice the largest effect on any leaf of the same player
+    (G: generator and condition nets; D: discriminator), and at least
+    UPDATE_FLOOR. The effect on one leaf is one draw of rounding noise (on
+    the icosphere model of tests/test_torch_train_prod.py, another
+    implementation's distance from JAX is 0.04-5x it, leaf by leaf), so a
+    player's leaves share its largest. Returns (metric bounds [STEPS, M],
+    update bounds [L])."""
+    effect = np.abs(metrics - f32_metrics) / np.abs(f32_metrics)
+    metric_bound = np.maximum(2 * effect, bf16_ulp_rel(metrics))
+    spread = summary_spread(f32_summary, summary, np.asarray(sizes))
+    is_d = np.array([k.startswith("discriminator.") for k in keys])
+    update_bound = np.where(is_d, spread[is_d].max(initial=0), spread[~is_d].max(initial=0))
+    return metric_bound, np.maximum(2 * update_bound, UPDATE_FLOOR)
+
+
 def make_serve(model, params):
     from cape_tpu.apps.inference import InferenceEngine as JaxEngine
     from cape_tpu.apps.main import build_context as jax_build_context
@@ -162,11 +225,12 @@ def make_serve(model, params):
     print(f"wrote {OUT}: disp[:{KEEP}] max|ref| {np.abs(disp[:KEEP]).max():.6g}")
 
 
-def train_steps(params, jcfg, ctx):
-    """Two GAN train steps of JAX (batch B, the synthetic batches of the
-    train golden's recipe, eps of train_eps) from `params`. Returns the
-    metrics [STEPS, len(METRICS)], eps, the step-2 updates by dotted key
-    path and the steps per epoch."""
+def train_steps(params, jcfg, ctx, batch_size: int = B, dtypes: dict | None = None):
+    """Two GAN train steps of JAX (the synthetic batches of the train
+    golden's recipe, eps of train_eps) from `params`. Returns the metrics
+    [STEPS, len(METRICS)], eps, the step-2 updates by dotted key path and
+    the steps per epoch; fills `dtypes`, if given, with each metric's
+    dtype name."""
     import jax
     import jax.numpy as jnp
 
@@ -181,10 +245,12 @@ def train_steps(params, jcfg, ctx):
         """The reparameterization noise comes in through the rng argument."""
 
         def sample_z(self, rng, z_mean, z_logvar):
-            return z_mean + jnp.exp(0.5 * jnp.clip(z_logvar, -30.0, 30.0)) * rng
+            # the noise in z_mean's dtype, as JAX's own sample_z draws it
+            return z_mean + jnp.exp(0.5 * jnp.clip(z_logvar, -30.0, 30.0)) * rng.astype(
+                z_mean.dtype)
 
     data = synthetic_bodydata(n_train=N_TRAIN, n_test=N_TEST, num_verts=6890, seed=jcfg.seed)
-    steps_per_epoch = len(data.disp_train) // B
+    steps_per_epoch = len(data.disp_train) // batch_size
     tx, _, _ = build_optimizer(jcfg, steps_per_epoch)
     state = create_train_state(params, tx)
     jmodel = EpsCAPE(jcfg)
@@ -199,10 +265,10 @@ def train_steps(params, jcfg, ctx):
         new = jax.tree_util.tree_map(lambda p, u: p + u.astype(p.dtype), state.params, updates)
         return TrainState(step=state.step + 1, params=new, opt_state=opt_state), metrics, updates
 
-    eps = train_eps(jcfg)
+    eps = train_eps(jcfg, batch_size)
     metrics = np.zeros((STEPS, len(METRICS)))
     n = len(data.disp_train)
-    sg, sd = BatchStream(n, B, jcfg.seed), BatchStream(n, B, jcfg.seed + 1)
+    sg, sd = BatchStream(n, batch_size, jcfg.seed), BatchStream(n, batch_size, jcfg.seed + 1)
     disp = data.disp_train[:, ctx.vertex_perm]
     for i in range(STEPS):
         ig, idd = sg.next_indices(), sd.next_indices()
@@ -213,6 +279,8 @@ def train_steps(params, jcfg, ctx):
         state, m, updates = step_fn(state, ctx, {k: jnp.asarray(v) for k, v in batch.items()},
                                     jnp.asarray(eps[i]))
         metrics[i] = [float(m[k]) for k in METRICS]
+        if dtypes is not None:
+            dtypes.update({k: str(m[k].dtype) for k in METRICS})
         print(f"step {i + 1}: " + " ".join(f"{k}={v:.6g}" for k, v in zip(METRICS, metrics[i])))
     assert np.isfinite(metrics).all()
     return metrics, eps, _flatten(jax.device_get(updates)), steps_per_epoch
@@ -335,6 +403,66 @@ def make_families():
     print(f"wrote {OUT_FAMILIES}: {os.path.getsize(OUT_FAMILIES)} bytes")
 
 
+def make_bf16():
+    """bf16 compute (and bf16 optimizer state) on the flagship, two steps
+    each, beside JAX's f32 steps on the same inputs (see the module
+    docstring)."""
+    import jax
+    import torch
+
+    from cape_tpu.apps.main import build_context as jax_build_context
+    from cape_tpu.core.config import load_config as jax_load_config
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.core.bridge import to_jax_params
+    from cape_tpu_torch.core.config import load_config
+    from cape_tpu_torch.models.cape import CAPE
+
+    cfg = load_config(PRESET)
+    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), build_context(cfg))
+    params = jax.tree_util.tree_map(jax.numpy.asarray, to_jax_params(model))
+    keys, sums = fingerprint(model.state_dict())
+    sizes = np.array([model.state_dict()[k].numel() for k in keys])
+    out = dict(param_keys=np.array(keys), param_sums=sums, leaf_sizes=sizes,
+               metric_names=np.array(METRICS))
+    ctxs, f32_runs = {}, {}
+
+    def run(batch_size, dtype, overrides):
+        jcfg = jax_load_config(PRESET, use_pallas=False, batch_size=batch_size,
+                               compute_dtype=dtype, **overrides)
+        if dtype not in ctxs:
+            ctxs[dtype] = jax_build_context(jcfg)
+        dtypes = {}
+        metrics, eps, deltas, spe = train_steps(params, jcfg, ctxs[dtype], batch_size, dtypes)
+        summary = np.stack([update_summary(deltas[k]) for k in keys])
+        return dict(metrics=metrics, eps=eps, summary=summary, spe=spe, seed=jcfg.seed,
+                    dtypes=np.array([dtypes[k] for k in METRICS]))
+
+    for prefix, (batch_size, overrides) in BF16_RUNS.items():
+        print(f"{prefix}: batch {batch_size}, bfloat16 {overrides}", flush=True)
+        bf = run(batch_size, "bfloat16", overrides)
+        if batch_size not in f32_runs:
+            print(f"{prefix}: batch {batch_size}, float32", flush=True)
+            f32_runs[batch_size] = run(batch_size, "float32", {})
+        f32 = f32_runs[batch_size]
+        metric_bound, update_bound = bf16_bounds(bf["metrics"], f32["metrics"], bf["summary"],
+                                                 f32["summary"], keys, sizes)
+        record = dict(
+            batch=batch_size, seed=bf["seed"], n_train=N_TRAIN, n_test=N_TEST,
+            steps_per_epoch=bf["spe"], eps=bf["eps"], opt_state_dtype=overrides.get(
+                "opt_state_dtype", "float32"),
+            metrics=bf["metrics"], metric_dtypes=bf["dtypes"], update_summary=bf["summary"],
+            f32_metrics=f32["metrics"], f32_update_summary=f32["summary"],
+            metric_bound=metric_bound, update_bound=update_bound,
+        )
+        out.update({f"{prefix}:{k}": v for k, v in record.items()})
+        print(f"{prefix}: metric dtypes {dict(zip(METRICS, bf['dtypes']))}; metric bounds "
+              f"{np.round(metric_bound.max(0), 5).tolist()}; update bounds G "
+              f"{update_bound[0]:.4g}, D {update_bound[keys.index('discriminator.pred.w')]:.4g}",
+              flush=True)
+    np.savez_compressed(OUT_BF16, **out)
+    print(f"wrote {OUT_BF16}: {os.path.getsize(OUT_BF16)} bytes")
+
+
 def demo_conditions(cfg):
     """The server draw's condition: the first demo pose, the first
     clothing type."""
@@ -406,7 +534,8 @@ def make_demo():
 
 
 def main(argv=None):
-    which = set(sys.argv[1:] if argv is None else argv) or {"serve", "train", "demo", "families"}
+    which = set(sys.argv[1:] if argv is None else argv) or {"serve", "train", "demo", "families",
+                                                             "bf16"}
     sys.path.insert(0, ROOT)
     import jax
     import torch
@@ -421,6 +550,8 @@ def main(argv=None):
         make_demo()
     if "families" in which:
         make_families()
+    if "bf16" in which:
+        make_bf16()
     if not which & {"serve", "train"}:
         return
     cfg = load_config(PRESET)

@@ -266,12 +266,15 @@ def test_main_modes_on_the_cpu(engines, tmp_path, monkeypatch, mode):
     writes the test results or the demo OBJ files."""
     from cape_tpu_torch.apps import main as app_main
     from cape_tpu_torch.train.checkpoint import save_checkpoint
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState
 
     _, eng = engines
     monkeypatch.setattr(app_main, "synthetic_bodydata",
                         lambda **kw: synthetic_bodydata(**{**kw, "n_train": 24, "n_test": 5,
                                                            "n_val": 4}))
-    save_checkpoint(str(tmp_path / "nz18" / "checkpoints"), eng.model, step=7)
+    save_checkpoint(str(tmp_path / "nz18" / "checkpoints"),
+                    TrainState(eng.model, Optimizer(eng.model.cfg, 1), step=7), step=7)
     seen = {}
     real_run = app_main.run
     monkeypatch.setattr(app_main, "run", lambda *a, **k: seen.setdefault("r", real_run(*a, **k)))
@@ -428,11 +431,14 @@ def test_fit_latent_gmm_tool(engines, small_preset, tmp_path, monkeypatch):
     from cape_tpu_torch.models.gmm import GMM
     from cape_tpu_torch.tools import fit_latent_gmm
     from cape_tpu_torch.train.checkpoint import save_checkpoint
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState
 
     _, eng = engines
     data = synthetic_bodydata(n_train=28, n_test=2, num_verts=6890, n_val=4, seed=3)
     monkeypatch.setattr(fit_latent_gmm, "load_bodydata", lambda cfg: data)
-    save_checkpoint(str(tmp_path / "run" / "checkpoints"), eng.model, step=1)
+    save_checkpoint(str(tmp_path / "run" / "checkpoints"),
+                    TrainState(eng.model, Optimizer(eng.model.cfg, 1), step=1), step=1)
     out = str(tmp_path / "latent_gmm.npz")
     fit_latent_gmm.main(["--config", small_preset, "--name", "run", "--workdir", str(tmp_path),
                          "--n_components", "2", "--n_iter", "5", "--out", out,

@@ -268,7 +268,10 @@ def test_import_loads_no_jax_flax_or_yaml():
         "assert 'cape_tpu_torch.meshops.assets' in names, names\n"
         "new = ['core.prng', 'apps.client', 'apps.demos', 'apps.simple_demo', 'models.gmm',\n"
         "       'models.summary', 'meshops.viewer', 'meshops.render', 'smpl.joints',\n"
-        "       'smpl.rodrigues', 'smpl.lbs', 'tools.fit_latent_gmm', 'ops.norm']\n"
+        "       'smpl.rodrigues', 'smpl.lbs', 'tools.fit_latent_gmm', 'ops.norm',\n"
+        "       'data.packer', 'data.dataset_configs', 'train.tb_events', 'train.metrics',\n"
+        "       'meshops.normals', 'tools.plot_metrics', 'tools.dtype_ablation',\n"
+        "       'tools.opt_state_ab', 'tools.acceptance']\n"
         "assert not [n for n in new if 'cape_tpu_torch.' + n not in names], names\n"
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', 'yaml', 'cape_tpu')\n"
