@@ -56,7 +56,9 @@ class BatchedCalls:
             ]
             with torch.inference_mode():
                 res = fn(*padded)
-            res = res if isinstance(res, tuple) else (res,)
+            # one tensor, or a tuple or list of them (an exported program's
+            # outputs), on `device`
+            res = res if isinstance(res, (tuple, list)) else (res,)
             res = [r.float().cpu().numpy()[: end - begin] for r in res]
             if outs is None:
                 outs = [[] for _ in res]

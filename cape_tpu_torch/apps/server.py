@@ -4,6 +4,10 @@ over the PyTorch `InferenceEngine`.
   python -m cape_tpu_torch.apps.server --config configs/<preset>.yaml \
       --name run1 [--fresh-init] [--batch_size 32] [--device cpu] [--port 0] \
       [--no-micro-batch] [--no-warmup]
+  python -m cape_tpu_torch.apps.server --artifact model.capex [--device cpu] ...
+
+With --artifact it serves an AOT export (`tools.export_model`) through
+`ExportedEngine` instead: no config, checkpoint or model-building code.
 
 It runs on the GPU; without one it raises unless `--device cpu` asks for
 the CPU. With nz == 18 (the nz18 presets) it loads the shipped GMM prior
@@ -38,7 +42,7 @@ reaches every request of its call as a 500.
 
 SIGTERM or SIGINT drains: the server stops accepting, responses carry
 `Connection: close`, and it exits once every request in flight has been
-answered (30 s at most). Not ported: --artifact and --data_parallel.
+answered (30 s at most). Not ported: --data_parallel.
 """
 
 from __future__ import annotations
@@ -274,8 +278,15 @@ class ModelServer:
         from cape_tpu_torch.meshops.viewer import live_viewer_html
 
         cfg = self.engine.model.cfg
-        tv = self.engine.ctx.template_verts.detach().cpu().numpy().astype(np.float32)
-        template = self.engine._to_natural_order(tv[None])[0]
+        # the live engine carries the (device-order) template; an artifact
+        # engine ships no topology (its duck-typed ctx has neither the
+        # template nor the natural-order mapping): the template then comes
+        # from assets/ for the SMPL topology, else a 404
+        template = None
+        tv = getattr(self.engine.ctx, "template_verts", None)
+        if tv is not None and hasattr(self.engine, "_to_natural_order"):
+            tv = tv.detach().cpu().numpy().astype(np.float32)
+            template = self.engine._to_natural_order(tv[None])[0]
         if self._viewer_mesh is not None:
             faces, mean, std, demo_poses = self._viewer_mesh
         elif self.info["num_verts"] == 6890:
@@ -283,7 +294,9 @@ class ModelServer:
             from cape_tpu_torch.meshops import assets
             from cape_tpu_torch.smpl.joints import filter_cloth_pose
 
-            _, faces = assets.template_mesh()
+            averts, faces = assets.template_mesh()
+            if template is None:
+                template = np.asarray(averts, np.float32)  # natural order
             mean, std = assets.trainset_stats()
             poses = assets.demo_pose_params()
             raw = poses["rot"] if cfg.cond_dim % 9 == 0 else poses["pose"]
@@ -292,6 +305,11 @@ class ModelServer:
             raise ServerError(
                 "no mesh topology known for this model — pass viewer_mesh="
                 "(faces, mean, std, demo_poses) to ModelServer/serve()"
+            )
+        if template is None:
+            raise ServerError(
+                "this engine ships no mesh template (an artifact of a model that is not "
+                "on the SMPL topology): /viewer needs a live engine or the SMPL topology"
             )
         if demo_poses is None or np.asarray(demo_poses).size == 0:
             demo_poses = np.zeros((1, cfg.cond_dim), np.float32)
@@ -321,6 +339,9 @@ class ModelServer:
         clo = np.zeros((1, cfg.cond2_dim), np.float32)
         with self._device_lock:
             self.engine.autoencode(disp, pose, clo, sample=True)
+            # the artifact engine's embed is a program of its own, not
+            # reached through autoencode's encode
+            self.engine.encode_only_condition(pose, clo)
         return time.perf_counter() - t0
 
     def _locked(self, fn):
@@ -664,38 +685,52 @@ def main(argv=None):
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--no-micro-batch", action="store_true")
     ap.add_argument("--workdir", default="results")
-    ap.add_argument("--artifact", default=None)
+    ap.add_argument("--artifact", default=None,
+                    help="serve a .capex export instead of a checkpoint")
     own, rest = ap.parse_known_args(argv)
+
+    from cape_tpu_torch.apps.main import require_device
+
     if own.artifact:
-        raise NotImplementedError(
-            "--artifact (serving an AOT export) is not ported to cape_tpu_torch yet"
-        )
+        # checkpoint-mode flags (batch size, config, --fresh-init,
+        # --workdir, ...) cannot apply to a baked artifact; ignoring them
+        # would let an operator believe they configured something
+        if own.fresh_init:
+            rest = ["--fresh-init"] + rest
+        if own.workdir != "results":
+            rest = ["--workdir", own.workdir] + rest
+        if rest:
+            print(f"error: unsupported flags with --artifact: {rest}", file=sys.stderr)
+            sys.exit(2)
+        require_device(own.device)
+        from cape_tpu_torch.tools.export_model import ExportedEngine, ExportedModel
 
-    from cape_tpu_torch.apps.main import (
-        build_context, require_device, resolve_config, restore_params,
-    )
-    from cape_tpu_torch.core.config import parse_cli
-    from cape_tpu_torch.models.cape import CAPE
-
-    cfg = resolve_config(parse_cli(rest))
-    if not cfg.name:
-        print("error: --name is required", file=sys.stderr)
-        sys.exit(2)
-    if cfg.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel is not ported to cape_tpu_torch yet (one device per server)"
-        )
-    require_device(own.device)
-    model = CAPE(cfg)
-    ctx = build_context(cfg)
-    if own.fresh_init:
-        model.init_params(torch.Generator().manual_seed(cfg.seed), ctx)
+        engine = ExportedEngine(ExportedModel.load(own.artifact, device=own.device))
     else:
-        restore_params(cfg, model, ctx, own.workdir)
-    engine = InferenceEngine(model, ctx, cfg.batch_size, device=own.device)
+        from cape_tpu_torch.apps.main import build_context, resolve_config, restore_params
+        from cape_tpu_torch.core.config import parse_cli
+        from cape_tpu_torch.models.cape import CAPE
+
+        cfg = resolve_config(parse_cli(rest))
+        if not cfg.name:
+            print("error: --name is required", file=sys.stderr)
+            sys.exit(2)
+        if cfg.data_parallel > 1:
+            raise NotImplementedError(
+                "--data_parallel is not ported to cape_tpu_torch yet (one device per server)"
+            )
+        require_device(own.device)
+        model = CAPE(cfg)
+        ctx = build_context(cfg)
+        if own.fresh_init:
+            model.init_params(torch.Generator().manual_seed(cfg.seed), ctx)
+        else:
+            restore_params(cfg, model, ctx, own.workdir)
+        engine = InferenceEngine(model, ctx, cfg.batch_size, device=own.device)
+    name = engine.model.cfg.name
 
     gmm = None
-    if cfg.nz == 18:  # the shipped prior's dimensionality
+    if engine.model.cfg.nz == 18:  # the shipped prior's dimensionality
         try:
             from cape_tpu_torch.models.gmm import GMM
 
@@ -718,7 +753,7 @@ def main(argv=None):
     signal.signal(signal.SIGINT, _stop)
     if not own.no_warmup:
         print(f"warmup done in {ms.warmup():.1f}s", flush=True)
-    print(f"serving {cfg.name} on http://{own.host}:{httpd.server_address[1]}", flush=True)
+    print(f"serving {name} on http://{own.host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -7,6 +7,8 @@ Counterpart of the kernel subcommands of `cape_tpu/tools/perf_lab.py`:
   python -m cape_tpu_torch.tools.perf_lab layout   # batch-major vs vertex-major
   python -m cape_tpu_torch.tools.perf_lab fuse     # stacked-GEMM and project-first variants
   python -m cape_tpu_torch.tools.perf_lab bmapply  # bare band apply: plain vs kernel 3
+  python -m cape_tpu_torch.tools.perf_lab artifact model.capex [--batch B]
+                                                   # an exported artifact's decode
 
 They take the JAX subcommands' options and defaults (batch 16, channels 64,
 level 0), and `--device` (default `cuda`; without a GPU the tool raises).
@@ -23,7 +25,7 @@ and these added: `device` (the GPU's name); in `conv`, `max_rel_err_v2` and
 kernel 1's `v1_fwd_ms`, `v1_fwdbwd_ms` and `max_rel_err_v1` (the fused conv
 with one sample per block, which no JAX subcommand times); in `layout`,
 `max_rel_err_vm_kernel`; in `fuse`, each variant's `max_rel_err`; in
-`bmapply`, `max_rel_err_cf`. Errors are max|got - ref| / max|ref| against
+`bmapply`, `max_rel_err_cf`; in `artifact`, `device`. Errors are max|got - ref| / max|ref| against
 the plain route on the same inputs. The plain route is built from the plain
 functions themselves, so CAPE_TPU_PALLAS cannot put it on a kernel. Numbers
 are printed unrounded.
@@ -32,10 +34,10 @@ Timing (`time_routes`): CUDA events; the routes of a line take turns, each
 timing runs of back-to-back calls between one pair of events, and report
 the median over rounds of the mean per call. The JAX tool chains calls in a
 `fori_loop` to beat a remote TPU's ~29 ms sync; a local GPU needs no
-chaining. Fwd+bwd is one gradient step on x of sum(y**2), as in JAX. The
-other JAX subcommands (chain, parts, step, trace, serve, http, artifact,
-concurrency) are not ported yet: ROADMAP.md lists them, and `main` refuses
-them by name.
+chaining: `artifact`'s `--inner` is the calls between one pair of events.
+Fwd+bwd is one gradient step on x of sum(y**2), as in JAX. The other JAX
+subcommands (chain, parts, step, trace, serve, http, concurrency) are not
+ported yet: ROADMAP.md lists them, and `main` refuses them by name.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-UNPORTED = ("chain", "parts", "step", "trace", "serve", "http", "artifact", "concurrency")
+UNPORTED = ("chain", "parts", "step", "trace", "serve", "http", "concurrency")
 
 
 def time_routes(routes: dict, warmup: int = 3, rounds: int = 10, calls: int = 10) -> dict:
@@ -329,6 +331,46 @@ def cmd_bmapply(args):
                "device": _device_name(args.device)})
 
 
+def cmd_artifact(args):
+    """Decode latency of an exported artifact (`tools.export_model`) on the
+    device: ms per call by `time_routes` (`--inner` back-to-back calls per
+    event pair), and the single-call latency with dispatch (host clock,
+    synchronized, median of 16). Primary use: a compressed export (int8
+    weights, bf16 constants) against its f32 twin, or against the live
+    engine's decode."""
+    import time
+
+    from cape_tpu_torch.tools.export_model import ExportedModel
+
+    em = ExportedModel.load(args.path, device=args.device)
+    m = em.meta
+    if args.batch and not m.get("symbolic_batch"):
+        raise SystemExit(
+            f"--batch {args.batch} has no effect: {args.path} is a fixed-batch artifact "
+            f"(batch_size={m['batch_size']}); only --symbolic-batch exports run at other sizes"
+        )
+    B = args.batch or m["batch_size"]
+    rng = np.random.default_rng(0)
+    zt = _inputs(rng, (B, m["nz"] + m["nz_cond"] + m["nz_cond2"]), torch.float32, args.device)
+    y = _inputs(rng, (B, m["nz_cond"]), torch.float32, args.device)
+    y2 = _inputs(rng, (B, m["nz_cond2"]), torch.float32, args.device)
+    call = em._calls["decode"]
+    with torch.inference_mode():
+        ms = time_routes({"decode": lambda: call(zt, y, y2)}, calls=args.inner)["decode"]
+        lats = []
+        for i in range(3 + 16):
+            t0 = time.perf_counter()
+            float(call(zt, y, y2).sum())  # waits for the device
+            if i >= 3:
+                lats.append(time.perf_counter() - t0)
+    lats.sort()
+    _emit({"bench": "artifact", "path": args.path, "batch": B, "quantize": m.get("quantize"),
+           "constants_dtype": m.get("constants_dtype"), "inner": args.inner,
+           "decode_ms_per_call": ms, "decode_meshes_per_sec": B / (ms / 1000.0),
+           "single_call_decode_ms_incl_dispatch": 1000.0 * lats[len(lats) // 2],
+           "device": _device_name(args.device)})
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m cape_tpu_torch.tools.perf_lab")
     p.add_argument("--device", default="cuda")
@@ -354,6 +396,11 @@ def main(argv=None):
     pb.add_argument("--channels", type=int, default=64)
     pb.add_argument("--level", type=int, default=0)
     pb.add_argument("--dtype", default="bfloat16", choices=("both", *DTYPES))
+    pa = sub.add_parser("artifact", parents=[dev])
+    pa.add_argument("path", help=".capex artifact to time")
+    pa.add_argument("--batch", type=int, default=None,
+                    help="batch size (symbolic-batch artifacts only)")
+    pa.add_argument("--inner", type=int, default=10)
     for name in UNPORTED:
         sub.add_parser(name)
     args, rest = p.parse_known_args(argv)
@@ -368,8 +415,9 @@ def main(argv=None):
             f"perf_lab --device {args.device}: no CUDA GPU; the lab times the GPU only"
         )
     if args.cmd is None:
-        p.error("choose a subcommand: conv, layout, fuse or bmapply")
-    {"conv": cmd_conv, "layout": cmd_layout, "fuse": cmd_fuse, "bmapply": cmd_bmapply}[args.cmd](args)
+        p.error("choose a subcommand: conv, layout, fuse, bmapply or artifact")
+    {"conv": cmd_conv, "layout": cmd_layout, "fuse": cmd_fuse, "bmapply": cmd_bmapply,
+     "artifact": cmd_artifact}[args.cmd](args)
 
 
 if __name__ == "__main__":

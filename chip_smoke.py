@@ -143,6 +143,25 @@ result line):
      (loss_g scalars, parameter histograms), the profiler trace naming the
      band-gather kernel. (e) the step times of bf16 at batch 16, bf16 at
      batch 32 on both routes and f32 at batch 16, in turns, 6 rounds of 2.
+ 19. artifact (after phase 18): the deployment path. The flagship (f32,
+     batch 32, the golden's seed-0 parameters) exported with
+     tools.export_model twice, f32 and int8 weights with bf16 constants
+     (export seconds and MB logged), both loaded on the card; every
+     program's parameters, buffers and constants on cuda. With the counts
+     at 0 just before and read just after: the f32 artifact's batch-32
+     decode of the golden inputs within 1e-4 * max|ref| of
+     tests/data/torch_golden_flagship.npz, its embed and encode within
+     1e-4 * max|ref| of the live engine's plain route; the int8 artifact
+     within relative L2 0.05 of the f32 one (JAX's bound) and under 0.7x
+     its size; the int8 artifact served through serve(ExportedEngine), a
+     /sample round trip; no kernel launched (the artifact runs the plain
+     route, as JAX's export does). decode.pt2 loaded and run on the card
+     in a process that imports torch alone. Then each artifact's decode
+     by `perf_lab artifact`, and both artifacts' and the live engine's
+     kernel and plain decode calls timed in turns; one decode call of each
+     artifact and of the live plain route under torch.profiler: its device
+     kernels, their device time and the aten operators it dispatched, and
+     what the artifacts launch and dispatch that the live call does not.
  14. lab (last): the kernel lab's conv, conv --padded 1, layout, fuse and
      bmapply with the counts at 0 just before; its errors within their
      limits; the v2, v1, v5 and bm kernels launched.
@@ -1947,6 +1966,218 @@ def train_prod_phase(cfg, ctx, smi):
     return fwd, bwd, records
 
 
+def program_devices(em) -> dict:
+    """{program: sorted device types} of every parameter, buffer and
+    constant of an ExportedModel's programs, and of every device argument
+    in their graphs."""
+    out = {}
+    for name, ep in em.programs.items():
+        seen = {t.device.type for t in list(ep.state_dict.values()) + list(ep.constants.values())
+                if isinstance(t, torch.Tensor)}
+        seen |= {torch.device(n.kwargs["device"]).type for n in ep.graph.nodes
+                 if isinstance(n.kwargs.get("device"), (str, torch.device))}
+        out[name] = sorted(seen)
+    return out
+
+
+def kernel_census(fn) -> dict:
+    """One call of `fn`, after one warm-up call, under torch.profiler: the
+    device kernels it launched (count and summed device ms), the aten
+    operators the host dispatched (those under no other aten operator),
+    and {name: count} of both."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and e.name.startswith("aten::")
+           and not (e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::"))]
+    return {"kernels": len(kernels),
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1000.0,
+            "ops": len(ops),
+            "kernel_names": dict(Counter(e.name for e in kernels)),
+            "op_names": dict(Counter(e.name for e in ops))}
+
+
+def census_diff(a: dict, b: dict) -> dict:
+    """{name: count in a - count in b} where they differ."""
+    return {k: a.get(k, 0) - b.get(k, 0) for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+# loads an artifact's decode program with torch alone, runs it on the card
+# at the artifact's batch, and lists the modules of this repo it imported
+TORCH_ONLY_LOAD = """
+import io, json, sys, zipfile
+import torch
+from torch.export.passes import move_to_device_pass
+with zipfile.ZipFile(sys.argv[1]) as zf:
+    meta = json.loads(zf.read("meta.json"))
+    ep = torch.export.load(io.BytesIO(zf.read("decode.pt2")))
+fn = move_to_device_pass(ep, "cuda").module()
+B = meta["batch_size"]
+with torch.inference_mode():
+    out = fn(torch.zeros(B, meta["nz"] + meta["nz_cond"] + meta["nz_cond2"], device="cuda"),
+             torch.zeros(B, meta["nz_cond"], device="cuda"),
+             torch.zeros(B, meta["nz_cond2"], device="cuda"))
+print(json.dumps({"shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+                  "repo_modules": sorted(m for m in sys.modules if m.startswith("cape_tpu"))}))
+"""
+
+
+def artifact_phase(cfg, model, ctx, ctx_plain, smi):
+    """Phase 19: the deployment path. The flagship (f32, batch 32, the
+    golden's seed-0 parameters) exported twice with tools.export_model (f32;
+    int8 weights with bf16 constants) and both loaded on the card; every
+    program tensor on cuda; with the counts at 0 just before and read just
+    after, the f32 artifact's batch-32 decode of the golden inputs held to
+    tests/data/torch_golden_flagship.npz and its embed and encode to the
+    live engine's plain route (1e-4 * max|ref|), the int8 artifact to the
+    f32 one (relative L2 < 0.05, JAX's bound), the int8 artifact served
+    through serve(ExportedEngine) with a /sample round trip, and no kernel
+    launched; decode.pt2 loaded in a process that imports torch alone. Then
+    each artifact's decode by the lab's artifact timer, and the artifacts'
+    and the live engine's decode calls timed in turns. Returns the record."""
+    from cape_tpu_torch.apps.inference import InferenceEngine
+    from cape_tpu_torch.core.bridge import to_jax_params
+    from cape_tpu_torch.tools import perf_lab
+    from cape_tpu_torch.tools.export_model import ExportedEngine, ExportedModel, export_model
+    from cape_tpu_torch.tools.perf_lab import time_routes
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "artifacts")
+    os.makedirs(out_dir, exist_ok=True)
+    golden = np.load(GOLDEN)
+    check_fingerprint("artifact phase", model, golden)
+    params = to_jax_params(model)
+    rec = {"device": smi}
+    paths = {"f32": os.path.join(out_dir, "flagship_f32.capex"),
+             "int8": os.path.join(out_dir, "flagship_int8_bf16.capex")}
+    kinds = {"f32": {}, "int8": {"quantize": "int8", "constants_dtype": "bfloat16"}}
+    em = {}
+    for kind, path in paths.items():
+        t0 = time.perf_counter()
+        export_model(model, ctx_plain, params, cfg.batch_size, path, **kinds[kind])
+        t1 = time.perf_counter()
+        em[kind] = ExportedModel.load(path, device="cuda")
+        t2 = time.perf_counter()
+        rec[kind] = {"export_s": t1 - t0, "load_s": t2 - t1, "mb": os.path.getsize(path) / 1e6,
+                     "devices": program_devices(em[kind])}
+        log(f"artifact {kind} [{smi}]: exported in {t1 - t0:.2f} s, {rec[kind]['mb']:.3f} MB, "
+            f"loaded on cuda in {t2 - t1:.2f} s; program tensors on {rec[kind]['devices']}")
+        if any(d != ["cuda"] for d in rec[kind]["devices"].values()):
+            raise AssertionError(f"artifact {kind}: a program tensor is not on cuda: "
+                                 f"{rec[kind]['devices']}")
+    if not rec["int8"]["mb"] < 0.7 * rec["f32"]["mb"]:
+        raise AssertionError(f"the int8/bf16 artifact is not under 0.7x the f32 one: {rec}")
+    ee = {kind: ExportedEngine(m) for kind, m in em.items()}
+    live = InferenceEngine(model, ctx_plain, cfg.batch_size)
+    pose, clo = golden["pose"], golden["clo"]
+
+    # ---- the artifacts' main path: every count at 0 just before, read just after
+    zero_counts()
+    y, y2 = ee["f32"].encode_only_condition(pose, clo)
+    zt = np.concatenate([golden["z"], y, y2], -1)
+    disp = ee["f32"].decode(zt, y, y2)
+    check_mesh("artifact f32 golden decode", disp, 32)
+    rec["golden_err"] = held_to("artifact f32 vs JAX golden (batch-32 decode)",
+                                disp[: len(golden["disp"])], golden["disp"])
+    got_enc = ee["f32"].encode(disp, pose, clo)
+    y8, y28 = ee["int8"].encode_only_condition(pose, clo)
+    disp8 = ee["int8"].decode(np.concatenate([golden["z"], y8, y28], -1), y8, y28)
+    httpd, thread, ms, client = start_server(ee["int8"])
+    try:
+        ms.warmup()
+        served, z = client.sample(pose[:1], clo[:1], n=40, seed=0)
+        health = client.health()
+    finally:
+        stop_server(httpd, thread)
+    counts = read_counts()
+    log(f"artifact main path: all counts {json.dumps(counts)} (0 by design: the artifact "
+        "runs the plain route, as JAX's export does with use_pallas=False)")
+    if any(counts.values()):
+        raise AssertionError(f"the artifact calls launched a kernel: {counts}")
+    rec["launches"] = counts
+
+    # ---- against the live engine's plain route, and int8 against f32
+    want_y = live.encode_only_condition(pose, clo)
+    for name, g, w in zip(("y", "y2"), (y, y2), want_y):
+        held_to(f"artifact f32 embed {name} vs live plain route", g, w)
+    want_enc = live.encode(disp, pose, clo)
+    for name, g, w in zip(("z_mean", "z_logvar", "y", "y2"), got_enc, want_enc):
+        held_to(f"artifact f32 encode {name} vs live plain route", g, w)
+    rel = float(np.linalg.norm(disp8 - disp) / np.linalg.norm(disp))
+    log(f"artifact int8/bf16 vs f32 decode: relative L2 {rel:.3e} (limit 0.05)")
+    if not rel < 0.05:
+        raise AssertionError(f"the int8/bf16 artifact drifts {rel} from the f32 one")
+    rec["int8_rel_l2"] = rel
+    check_mesh("artifact int8 /sample", served, 40)
+    yy, yy2 = ee["int8"].encode_only_condition(pose[:1], clo[:1])
+    yy, yy2 = np.repeat(yy, 40, 0), np.repeat(yy2, 40, 0)
+    held_to("artifact int8 /sample vs its direct decode", served,
+            ee["int8"].decode(np.concatenate([z, yy, yy2], -1), yy, yy2), rel=1e-5)
+    if health["num_verts"] != 6890 or health["batch_size"] != 32:
+        raise AssertionError(f"artifact /health: {health}")
+
+    # ---- decode.pt2 with torch alone
+    proc = subprocess.run(["python3", "-c", TORCH_ONLY_LOAD, paths["int8"]], capture_output=True,
+                          text=True, timeout=300, cwd=tempfile.gettempdir())
+    if proc.returncode != 0:
+        raise AssertionError(f"torch-only load failed: {proc.stderr[-2000:]}")
+    alone = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"decode.pt2 in a process that imports torch alone: {json.dumps(alone)}")
+    if alone["repo_modules"] or alone["shape"] != [32, 6890, 3] or not alone["finite"]:
+        raise AssertionError(f"torch-only load: {alone}")
+
+    # ---- times: the lab's artifact timer, then every decode in turns
+    for kind, path in paths.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            perf_lab.main(["artifact", path, "--device", "cuda"])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        rec[kind]["lab"] = line
+        log(f"perf_lab artifact {kind} [{smi}]: {json.dumps(line)}")
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    tz, ty, ty2 = dev(zt), dev(y), dev(y2)
+    with torch.inference_mode():
+        t = time_routes({
+            "live_kernel": functools.partial(model.decode, ctx, tz, ty, ty2),
+            "live_plain": functools.partial(model.decode, ctx_plain, tz, ty, ty2),
+            **{f"artifact_{k}": functools.partial(m._calls["decode"], tz, ty, ty2)
+               for k, m in em.items()},
+        })
+    rec["decode_ms"] = t
+    for name, ms_ in t.items():
+        log(f"batch-32 decode call, {name} [{smi}]: {ms_:.3f} ms")
+
+    # ---- what one decode call launches and dispatches, per route
+    with torch.inference_mode():
+        census = {"live_plain": kernel_census(functools.partial(
+                      model.decode, ctx_plain, tz, ty, ty2)),
+                  **{f"artifact_{k}": kernel_census(functools.partial(m._calls["decode"], tz, ty, ty2))
+                     for k, m in em.items()}}
+    rec["census"] = census
+    for name, c in census.items():
+        log(f"batch-32 decode call, {name}, torch.profiler [{smi}]: {c['kernels']} device "
+            f"kernels, {c['kernel_ms']:.3f} ms of device time, {c['ops']} aten operators "
+            "dispatched")
+    for kind in em:
+        a, p = census[f"artifact_{kind}"], census["live_plain"]
+        log(f"artifact {kind} minus live plain, per decode call: kernels "
+            f"{json.dumps(census_diff(a['kernel_names'], p['kernel_names']))}; aten operators "
+            f"{json.dumps(census_diff(a['op_names'], p['op_names']))}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"artifact phase: {rec['phase_s']:.2f} s")
+    return rec
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_phase()
@@ -2047,11 +2278,12 @@ def main():
     demo_launches, demo_seconds = demo_phase(smi)
     fam_fwd, fam_bwd, fam_times = families_phase(cfg, ctx, smi)
     prod_fwd, prod_bwd, prod_records = train_prod_phase(cfg, ctx, smi)
+    artifact_rec = artifact_phase(cfg, model, ctx, ctx_plain, smi)
     log(f"main paths: serve {launches} band_apply launches; train mode {run_fwd} "
         f"band_apply and {run_bwd} band_apply_bwd launches; microbatch {mb_launches} and "
         f"demo {demo_launches} band_apply launches; families {fam_fwd} band_apply and "
         f"{fam_bwd} band_apply_bwd launches; train-prod {prod_fwd} band_apply and {prod_bwd} "
-        "band_apply_bwd launches")
+        "band_apply_bwd launches; artifact 0 launches (the plain route by design)")
     log(f"train-prod step times [{smi}]: " + json.dumps(prod_records["step_ms"]))
     log(f"families times [{smi}]: " + json.dumps(fam_times))
     log(f"serving latency under load [{smi}]: " + json.dumps(mb_times))
@@ -2066,7 +2298,8 @@ def main():
                    "lab": lab_lines, "lab_launches": lab_counts,
                    "microbatch_latency": mb_times, "demo_mode_seconds": demo_seconds,
                    "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times},
-                   "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records}}, f)
+                   "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records},
+                   "artifact": artifact_rec}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{

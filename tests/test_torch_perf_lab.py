@@ -126,7 +126,7 @@ def test_plain_route_stays_plain_under_the_override(cmd, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("name", ["chain", "parts", "step", "trace", "serve", "http",
-                                  "artifact", "concurrency"])
+                                  "concurrency"])
 def test_unported_subcommand_fails_with_its_name(name):
     from cape_tpu_torch.tools import perf_lab
 

@@ -259,7 +259,8 @@ def test_restore_params_from_jax_checkpoint(engines, tmp_path):
 
 def test_import_loads_no_jax_flax_or_yaml():
     """Every module of the port, and chip_smoke.py, imports without jax,
-    flax, optax or yaml, and without any module of the JAX package
+    flax, optax, yaml or tensorflow (the converter imports it only inside
+    its two TF I/O functions), and without any module of the JAX package
     (`cape_tpu` or `cape_tpu.*`)."""
     code = (
         "import importlib, pkgutil, sys, cape_tpu_torch\n"
@@ -271,10 +272,12 @@ def test_import_loads_no_jax_flax_or_yaml():
         "       'smpl.rodrigues', 'smpl.lbs', 'tools.fit_latent_gmm', 'ops.norm',\n"
         "       'data.packer', 'data.dataset_configs', 'train.tb_events', 'train.metrics',\n"
         "       'meshops.normals', 'tools.plot_metrics', 'tools.dtype_ablation',\n"
-        "       'tools.opt_state_ab', 'tools.acceptance']\n"
+        "       'tools.opt_state_ab', 'tools.acceptance', 'tools.export_model',\n"
+        "       'tools.tf_ckpt_converter', 'tools.artifact_drill']\n"
         "assert not [n for n in new if 'cape_tpu_torch.' + n not in names], names\n"
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
-        "print(sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', 'yaml', 'cape_tpu')\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m in ('jax', 'flax', 'optax', 'yaml', 'tensorflow', 'cape_tpu')\n"
         "             or m.startswith('cape_tpu.')))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -342,8 +345,9 @@ def test_server_cli_serves_and_stops_on_sigterm():
 
 def test_unported_server_options_raise(engines):
     """Micro-batching is the default (and micro_batch=False the opt-out);
-    --artifact and --data_parallel are refused with NotImplementedError
-    naming what is missing (no silent substitute)."""
+    --data_parallel is refused with NotImplementedError naming what is
+    missing (no silent substitute); --artifact, ported, refuses the
+    checkpoint mode's flags (exit 2)."""
     from cape_tpu_torch.apps.server import main, serve
 
     _, eng = engines
@@ -354,8 +358,9 @@ def test_unported_server_options_raise(engines):
     httpd, ms = serve(eng, "127.0.0.1", 0, micro_batch=False)
     httpd.server_close()
     assert ms.batcher_counts() is None
-    with pytest.raises(NotImplementedError, match="--artifact"):
-        main(["--artifact", "model.capex"])
+    with pytest.raises(SystemExit) as e:
+        main(["--artifact", "model.capex", "--fresh-init", "--device", "cpu"])
+    assert e.value.code == 2
     with pytest.raises(NotImplementedError, match="--data_parallel"):
         main(["--config", FLAGSHIP,
               "--name", "x", "--data_parallel", "2", "--device", "cpu"])
