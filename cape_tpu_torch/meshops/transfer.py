@@ -6,19 +6,26 @@ triangle, yielding a sparse [V_fine, V_coarse] matrix with <= 3 nnz/row
 (reference: lib/mesh_sampling.py:67-108, which delegates the nearest-point
 query to psbody's C++ AABB tree).
 
-Copy of `cape_tpu.meshops.transfer` with its numpy backend only: exact
-point-triangle distance over KD-tree candidate faces (scipy cKDTree on face
-centroids). The JAX package prefers its C++ BVH (`native/`) where that is
-built, which can pick another triangle for a point equidistant from two
-(the tie rule is in `_nearest_numpy`); the port builds upsample matrices
-only off the canonical plan, whose pyramid is loaded from the shipped
-matrices.
+Copy of `cape_tpu.meshops.transfer`, with its two backends:
+  * `cape_tpu_torch.meshops.native_aabb`: the C++ BVH (exact, fast), built
+    at first use with the host's C++ compiler;
+  * numpy fallback, where it cannot be built: exact point-triangle distance
+    over KD-tree candidate faces (scipy cKDTree on face centroids).
+The two can pick another triangle for a point equidistant from two (the
+tie rule is in `_nearest_numpy`). Each upsample matrix logs the backend
+that built it (logger `cape_tpu_torch.meshops.transfer`, level INFO). The
+port builds upsample matrices only off the canonical plan, whose pyramid
+is loaded from the shipped matrices.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import scipy.sparse as sp
+
+log = logging.getLogger(__name__)
 
 
 def closest_point_on_triangles(p: np.ndarray, tri: np.ndarray):
@@ -121,8 +128,20 @@ def build_upsample_matrix(
     coarse_faces: np.ndarray,
     fine_verts: np.ndarray,
 ) -> sp.csc_matrix:
-    """Sparse barycentric interpolation matrix U: fine = U @ coarse."""
-    face_idx, bary = _nearest_numpy(fine_verts, coarse_verts, coarse_faces)
+    """Sparse barycentric interpolation matrix U: fine = U @ coarse.
+
+    Tries the native C++ BVH first, falls back to the numpy backend."""
+    try:
+        from cape_tpu_torch.meshops.native_aabb import nearest_triangles
+
+        face_idx, bary = nearest_triangles(coarse_verts, coarse_faces, fine_verts)
+        backend = "native"
+    except (ImportError, OSError) as e:
+        log.info("native BVH unavailable (%s): numpy backend", e)
+        face_idx, bary = _nearest_numpy(fine_verts, coarse_verts, coarse_faces)
+        backend = "numpy"
+    log.info("upsample %d x %d built by the %s backend",
+             len(fine_verts), len(coarse_verts), backend)
 
     nf = len(fine_verts)
     rows = np.repeat(np.arange(nf), 3)

@@ -1,11 +1,13 @@
-"""Build and load the CUDA kernels of `cape_tpu_torch/csrc/`.
+"""Build and load the native libraries of `cape_tpu_torch/csrc/`.
 
-Each source is compiled with `nvcc` into a shared library with a plain C
-interface and loaded with ctypes (no PyTorch headers, so a build takes
-seconds). Libraries go to `build/cape_tpu_torch/` at the root of the
-checkout, named by the hash of their source and flags, so an edited
-source is rebuilt at its next first use and an unchanged one is reused.
-Nothing is built or imported from CUDA when this module is imported.
+Each CUDA source (`*.cu`) is compiled with `nvcc` into a shared library
+with a plain C interface and loaded with ctypes (no PyTorch headers, so a
+build takes seconds); the host C++ source of the mesh BVH (`aabb.cpp`) is
+compiled the same way with the host's C++ compiler (`build_host`).
+Libraries go to `build/cape_tpu_torch/` at the root of the checkout, named
+by the hash of their source and flags, so an edited source is rebuilt at
+its next first use and an unchanged one is reused. Nothing is built or
+imported from CUDA when this module is imported.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 
 
 def _nvcc() -> str:
@@ -37,26 +40,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of the same source and flags
-    exists; return the library's path. The compiler's register and spill
-    report is kept beside it as <lib>.log."""
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("c++"), shutil.which("g++")):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError("no host C++ compiler (set CXX or put c++ on PATH)")
+
+
+def _compile(src: Path, compiler, flags: list[str]) -> Path:
+    """Compile `src` into a shared library unless one of the same source
+    and flags exists; return its path. `compiler` is called for its path
+    only when a build is needed. The compiler's output is kept beside the
+    library as <lib>.log."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [compiler(), *flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"compiling {src} failed:\n{proc.stdout}{proc.stderr}")
     (BUILD_DIR / f"{lib.stem}.log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu with nvcc (`_compile`); the log beside the
+    library holds ptxas's register and spill report."""
+    return _compile(SRC_DIR / f"{name}.cu", _nvcc, NVCC_FLAGS)
+
+
+def build_host(name: str) -> Path:
+    """Compile csrc/<name>.cpp with the host's C++ compiler (`_compile`)."""
+    return _compile(SRC_DIR / f"{name}.cpp", _cxx, CXX_FLAGS)
 
 
 def _bind(lib: ctypes.CDLL, fn: str, n_ints: int, n_ptrs: int) -> None:

@@ -1,0 +1,37 @@
+"""The flagship set-up of the lab (`tools.perf_lab`) and the endurance run
+(`tools.endurance`): the CAPE-affineconv_nz64_pose32_clotype32 model on
+the SMPL template's pyramids.
+
+Counterpart of the JAX package's `__graft_entry__._flagship_setup`, with
+the same widths (`FLAGSHIP`); the parameters come from torch.Generator
+seed 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cape_tpu_torch.core.config import CAPEConfig
+
+# the flagship's fields that differ from CAPEConfig's defaults
+FLAGSHIP = dict(
+    name="flagship", nz=64, nz_cond=32, nz_cond2=32, nf=64,
+    use_res_block=False, use_res_block_dec=True, affine=True,
+    reduce_dim=64, lambda_edge=1.0, batch_size=16,
+)
+
+
+def flagship_config(**overrides) -> CAPEConfig:
+    return CAPEConfig(**{**FLAGSHIP, **overrides})
+
+
+def flagship_setup(compute_dtype: str = "float32", device="cpu", **overrides):
+    """(config, model with seed-0 parameters on `device`, graph context on
+    `device`) of the flagship; `overrides` replace config fields."""
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.models.cape import CAPE
+
+    cfg = flagship_config(compute_dtype=compute_dtype, **overrides)
+    ctx = build_context(cfg, device=device)
+    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx).to(device)
+    return cfg, model, ctx

@@ -103,6 +103,19 @@ class Trainer:
             out[f"{k}_d"] = v.index_select(0, idd)
         return out
 
+    def run_steps(self, k: int, stream_g: BatchStream, stream_d: BatchStream) -> dict:
+        """k train steps back to back, each on a batch gathered on the device
+        by the next indices of the G and D streams, its noise seeded from
+        (seed, step); no host sync. Returns the last step's metrics (device
+        tensors). Trainer.fit takes its steps here, as does the lab's
+        `step` and `trace` (tools.perf_lab)."""
+        cfg = self.cfg
+        for _ in range(k):
+            batch = self._gather(stream_g.next_indices(), stream_d.next_indices())
+            eps = noise((cfg.batch_size, cfg.nz), self.device, cfg.seed, self.state.step)
+            metrics, _ = train_step(self.state, self.ctx, batch, eps)
+        return metrics
+
     def init_or_restore(self) -> int:
         """restart=True wipes the run directory; restart=False restores the
         newest readable checkpoint into the train state. Returns the step
@@ -130,7 +143,6 @@ class Trainer:
         stream_g.skip(start_step)
         stream_d.skip(start_step)
         screen_every = max(1, cfg.steps_per_dispatch)
-        eps_shape = (cfg.batch_size, cfg.nz)
         end_step = start_step + self.num_steps
 
         val_losses = []
@@ -147,10 +159,7 @@ class Trainer:
                 capture = profiled < cfg.profile_steps and (done > 0 or self.num_steps == 1)
                 if capture and profiled == 0:
                     profiler.enter_context(profile_steps(os.path.join(self.run_dir, "profile")))
-                batch = self._gather(stream_g.next_indices(), stream_d.next_indices())
-                metrics, _ = train_step(
-                    self.state, self.ctx, batch, noise(eps_shape, self.device, seed, step)
-                )
+                metrics = self.run_steps(1, stream_g, stream_d)
                 if capture:
                     profiled += 1
                     if profiled == cfg.profile_steps:

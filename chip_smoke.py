@@ -162,9 +162,34 @@ result line):
      artifact and of the live plain route under torch.profiler: its device
      kernels, their device time and the aten operators it dispatched, and
      what the artifacts launch and dispatch that the live call does not.
- 14. lab (last): the kernel lab's conv, conv --padded 1, layout, fuse and
-     bmapply with the counts at 0 just before; its errors within their
-     limits; the v2, v1, v5 and bm kernels launched.
+ 14. lab (after phase 19): the kernel lab's conv, conv --padded 1, layout,
+     fuse and bmapply with the counts at 0 just before; its errors within
+     their limits; the v2, v1, v5 and bm kernels launched.
+ 20. lab-rest (last): the lab's model subcommands and the endurance run
+     (tools.perf_lab, tools.endurance), each through its `main` as
+     `python -m` runs it, counts at 0 just before each and read just after.
+     parts --batch 32: band_apply and its addend variant launched, no other
+     kernel, each part's output (so its loss) within 1e-4 of max|ref| of
+     the plain route's.
+     step --k 4 at batch 32 and 16, f32 and bf16: 17 + 17 launches a step at
+     32 (bf16: all on bf16 tensors), none at 16; finite metrics (the lab
+     checks). serve (bf16, padded, batches 1, 16, 64): launches per engine
+     decode call 9 at 64 (the gate routes C >= 32 there), none at 1 and 16.
+     trace at batch 32 and 16, bf16 and f32: band_gather_kernel named in the
+     profiler's trace with 17 + 17 a step at 32 (0 at 16), the counts
+     agreeing, device ms a step within the host window. chain --batch 32,
+     both dtypes: its arms within 5e-2 (the lab checks), band_apply
+     launched both ways. http (npz at 50 reps, json at 5) and concurrency
+     (16 threads, 3 s) against the flagship (f32, batch 32) served on
+     127.0.0.1:0, micro-batched and one request at a time: every request
+     answered (no failed request under load), 7 launches per encode and
+     decode device call, more than one decode request per device call when
+     micro-batched; the HTTP layer's share of a /sample n=32 against one
+     engine decode call. endurance --epochs 1 --n-train 512 --batch 32
+     (bf16): finite final_val_recon, its checkpoint kept, 17 + 17 launches
+     a step and 14 per validation batch. The native BVH (csrc/aabb.cpp,
+     built with the host's C++ compiler) against the numpy backend on the
+     toy pyramid (`bvh_check`).
 Every timed record carries `bound_ms`, the least time the card could take
 for the same work (see `bound`). The per-case records go to
 build/chip_smoke_kernels.json. The last two lines are a JSON summary of
@@ -182,6 +207,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import tempfile
 import threading
@@ -271,6 +297,11 @@ PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 RING_MAIN = (32, 6912, 64, 64)
 # the lab's subcommands, as `python -m cape_tpu_torch.tools.perf_lab` takes them
 LAB_RUNS = [["conv"], ["conv", "--padded", "1"], ["layout"], ["fuse"], ["bmapply"]]
+# the lab-rest phase: steps per host sync of `perf_lab step`, and the band
+# applies of one engine decode call at each `perf_lab serve` batch (the gate
+# of ops.cheb, as tests/test_torch_ops.py holds it to JAX's)
+LAB_STEP_K = 4
+SERVE_DECODE_LAUNCHES = {1: 0, 16: 0, 64: 9}
 
 
 def log(*a):
@@ -903,6 +934,222 @@ def lab_phase(smi):
         if counts[k] == 0:
             raise AssertionError(f"the lab launched no {k} kernel: {counts}")
     return lines, counts
+
+
+def bvh_check() -> dict:
+    """The native BVH (csrc/aabb.cpp, built here with the host's C++
+    compiler) against the numpy nearest-triangle search on the toy
+    pyramid (icosphere(3), both pyramid plans): the upsample matrices equal
+    at every row where the two chose the same triangle, within 1e-12 (the
+    weights are in [0, 1]; the two implementations of the closest point
+    differ by one double ulp, 2.2e-16, on the toy pyramid); at every
+    other row both chosen triangles lie equally far from the fine vertex
+    (a tie) within 1e-12 of the mesh scale."""
+    import sys
+
+    import scipy.sparse as sp
+
+    from cape_tpu_torch.meshops import native_aabb
+    from cape_tpu_torch.meshops.pyramid import build_pyramid
+    from cape_tpu_torch.meshops.toy import icosphere
+    from cape_tpu_torch.meshops.transfer import _nearest_numpy, closest_point_on_triangles
+
+    t0 = time.perf_counter()
+    native_aabb._load()
+    built = time.perf_counter() - t0
+    verts, faces = icosphere(3)
+    scale = float(np.ptp(verts, axis=0).max())
+    rows = ties = differ = 0
+    for factors in ([1, 2, 1, 2, 1, 2, 1, 1], [2, 2, 2, 2]):
+        native = build_pyramid(verts, faces, factors)
+        saved = sys.modules.get("cape_tpu_torch.meshops.native_aabb")
+        sys.modules["cape_tpu_torch.meshops.native_aabb"] = None   # the numpy backend
+        try:
+            plain = build_pyramid(verts, faces, factors)
+        finally:
+            sys.modules["cape_tpu_torch.meshops.native_aabb"] = saved
+        for i, (u_nat, u_np) in enumerate(zip(native.upsamples, plain.upsamples, strict=True)):
+            coarse_v, coarse_f, fine_v = native.verts[i + 1], native.faces[i + 1], native.verts[i]
+            rows += len(fine_v)
+            chosen = (native_aabb.nearest_triangles(coarse_v, coarse_f, fine_v)[0],
+                      _nearest_numpy(fine_v, coarse_v, coarse_f)[0])
+            other = np.flatnonzero(chosen[0] != chosen[1])
+            diff = abs(sp.csr_matrix(u_nat) - sp.csr_matrix(u_np)).max(1).toarray()[:, 0]
+            same = np.setdiff1d(np.arange(len(fine_v)), other)
+            if not diff[same].max(initial=0.0) <= 1e-12:
+                raise AssertionError(f"native BVH {factors} upsamples[{i}]: rows "
+                                     f"{same[diff[same] > 0]} differ with the same triangle")
+            p = fine_v[other]
+            dist = [np.sqrt(closest_point_on_triangles(p, coarse_v[coarse_f[f[other]]][:, None])[0][:, 0])
+                    for f in chosen]
+            if not np.allclose(dist[0], dist[1], rtol=0, atol=1e-12 * scale):
+                raise AssertionError(f"native BVH {factors} upsamples[{i}]: rows {other} "
+                                     "chose triangles at different distances")
+            ties += len(other)
+            differ += int((diff > 1e-12).sum())
+    rec = {"build_s": built, "rows": rows, "other_triangle": ties, "rows_differ": differ}
+    log(f"native BVH: built in {built:.2f} s; of the toy pyramid's {rows} upsample rows, "
+        f"{ties} chose another triangle than numpy's at the same distance (ties), and "
+        f"{differ} of those differ in their weights; every other row within 1e-12")
+    return rec
+
+
+def lab_rest_phase(model, ctx, smi):
+    """The lab's model subcommands and the endurance run, each through
+    `perf_lab.main` or `endurance.main` as `python -m` runs it, in this
+    process, with every kernel count at 0 just before each run and read
+    just after (`run`); their checks are in the docstring at the top.
+    Returns (records, forward launches, backward launches)."""
+    from contextlib import redirect_stdout
+
+    from cape_tpu_torch.apps.inference import InferenceEngine
+    from cape_tpu_torch.tools import endurance, perf_lab
+
+    rec = {"runs": []}
+    fwd = bwd = 0
+
+    def run(argv, main=perf_lab.main, tag="lab"):
+        nonlocal fwd, bwd
+        buf = io.StringIO()
+        # ---- a main path: every count at 0 just before, read just after
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with redirect_stdout(buf):
+                result = main(argv)
+        finally:
+            for text in buf.getvalue().splitlines():
+                log(f"{tag} {' '.join(argv)} [{smi}]: {text}")
+        counts = read_counts()
+        seconds = time.perf_counter() - t0
+        fwd += counts["launches"]
+        bwd += counts["bwd_launches"]
+        log(f"{tag} {' '.join(argv)}: {seconds:.2f} s, counts {json.dumps(counts)}")
+        rec["runs"].append({"argv": argv, "seconds": seconds, "counts": counts,
+                            "lines": [json.loads(t) for t in buf.getvalue().splitlines()
+                                      if t.startswith("{")]})
+        return result, counts
+
+    t_phase = time.perf_counter()
+    # parts: rows 2 and 2b; each part's output within 1e-4 of the plain route's
+    parts, counts = run(["parts", "--batch", "32"])
+    if not (counts["launches"] and counts["bwd_launches"]) or not only(
+            counts, "launches", "bwd_launches"):
+        raise AssertionError(f"parts --batch 32: {counts}: expected rows 2 and 2b only")
+    for name, r in parts.items():
+        if not r["max_rel_err"] <= 1e-4:
+            raise AssertionError(f"parts {name}: {r['max_rel_err']} from the plain route")
+    # step: 17 + 17 launches a step at batch 32 (bf16: all bf16), none at 16
+    steps = (1 + perf_lab.STEP_GROUPS) * LAB_STEP_K
+    rec["step_ms"] = {}
+    for batch in (32, 16):
+        for dtype in ("float32", "bfloat16"):
+            line, counts = run(["step", "--batch", str(batch), "--dtype", dtype,
+                                "--k", str(LAB_STEP_K)])
+            per = FWD_PER_STEP * steps if batch == 32 else 0
+            want = {"launches": per, "bwd_launches": per,
+                    "bf16_launches": 2 * per if dtype == "bfloat16" else 0}
+            if any(counts[k] != v for k, v in want.items()) or not only(counts, *want):
+                raise AssertionError(f"step --batch {batch} {dtype}: {counts}, expected {want} "
+                                     f"over {steps} steps")
+            rec["step_ms"][f"{dtype} b{batch}"] = line["step_ms"]
+    # serve: launches per engine decode call by the gate (ops.cheb): 9 at 64
+    # (C >= 32 reach B*C >= 2048), none at 1 and 16
+    lines, counts = run(["serve"])
+    for line in lines:
+        want = SERVE_DECODE_LAUNCHES[line["batch"]]
+        if line["launches_per_decode_call"] != want:
+            raise AssertionError(f"serve batch {line['batch']}: "
+                                 f"{line['launches_per_decode_call']} launches, expected {want}")
+    if not counts["launches"] or not only(counts, "launches", "bf16_launches"):
+        raise AssertionError(f"serve: {counts}")
+    # trace: the band-gather kernel named, 17 + 17 a step at batch 32
+    trace_dir = os.path.join(ROOT, "build", "chip_smoke_traces")
+    rec["trace"] = {}
+    for batch, dtype in ((32, "bfloat16"), (32, "float32"), (16, "float32"), (16, "bfloat16")):
+        out = os.path.join(trace_dir, f"b{batch}_{dtype}")
+        att, counts = run(["trace", "--batch", str(batch), "--dtype", dtype, "--out", out])
+        n_steps = perf_lab.TRACE_WARMUP + 2 * perf_lab.TRACE_STEPS   # untraced, then traced
+        per = FWD_PER_STEP if batch == 32 else 0
+        named = att["family_counts"].get("band_gather_kernel", 0)
+        if (named != 2 * per or counts["launches"] != per * n_steps
+                or counts["bwd_launches"] != per * n_steps):
+            raise AssertionError(f"trace --batch {batch} {dtype}: band_gather_kernel {named} a "
+                                 f"step, counts {counts}; expected {per} + {per} a step")
+        if not att["device_ms_per_step"] <= att["wall_ms_per_step"]:
+            raise AssertionError(f"trace: device {att['device_ms_per_step']} ms a step over the "
+                                 f"wall's {att['wall_ms_per_step']}")
+        rec["trace"][f"{dtype} b{batch}"] = {k: att[k] for k in (
+            "device_ms_per_step", "wall_ms_per_step", "untraced_wall_ms_per_step",
+            "kernels_per_step", "by_category", "by_kernel")}
+        log(f"trace --batch {batch} {dtype} [{smi}]: device busy "
+            f"{att['device_ms_per_step'] / att['untraced_wall_ms_per_step']:.1%} of an untraced "
+            f"step ({att['device_ms_per_step']:.3f} of {att['untraced_wall_ms_per_step']:.3f} ms)")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    # chain: both layouts' arms within 5e-2 of batch-major (the lab raises)
+    _, counts = run(["chain", "--batch", "32", "--dtype", "both"])
+    if not (counts["launches"] and counts["bwd_launches"]):
+        raise AssertionError(f"chain --batch 32: no band apply launched: {counts}")
+    # http and concurrency against a live port server of the flagship at batch 32
+    engine = InferenceEngine(model, ctx, 32)
+    rng = np.random.default_rng(0)
+    host = [rng.standard_normal((32, n)).astype(np.float32)
+            for n in (model.cfg.z_total_dim, model.cfg.nz_cond, model.cfg.nz_cond2)]
+    engine.decode(*host)
+    lats = []
+    for _ in range(16):
+        t0 = time.perf_counter()
+        engine.decode(*host)
+        lats.append(1000.0 * (time.perf_counter() - t0))
+    rec["engine_decode_ms_b32"] = statistics.median(lats)
+    for micro_batch in (True, False):
+        engine.calls = dict.fromkeys(engine.calls, 0)
+        httpd, thread, _, client = start_server(engine, micro_batch=micro_batch)
+        mode = "micro-batched" if micro_batch else "one at a time"
+        try:
+            launched = 0
+            if micro_batch:
+                # npz at the JAX lab's 50 reps (the HTTP share); json at a few
+                for wire, reps in (("npz", "50"), ("json", "5")):
+                    rec[f"http {wire}"], c_http = run(["http", "--url", client.base_url,
+                                                       "--batch", "32", "--wire", wire,
+                                                       "--reps", reps])
+                    launched += c_http["launches"]
+            conc, c_conc = run(["concurrency", "--url", client.base_url, "--threads", "16",
+                                "--seconds", "3"])
+        finally:
+            stop_server(httpd, thread)
+        # the lab counts a failed request and goes on: none may fail
+        if not (conc["requests"] > 0 and conc["errors"] == 0):
+            raise AssertionError(f"concurrency ({mode}): {conc['errors']} of "
+                                 f"{conc['requests'] + conc['errors']} requests failed")
+        calls = dict(engine.calls)
+        launched += c_conc["launches"]
+        if launched != 7 * (calls["decode"] + calls["encode"]):
+            raise AssertionError(f"http/concurrency ({mode}): {launched} launches for {calls}")
+        rec[f"concurrency {mode}"] = conc
+        if micro_batch and not conc.get("decode_requests_per_device_call", 0) > 1:
+            raise AssertionError(f"concurrency: no coalescing under load: {conc}")
+    p50 = rec["http npz"]["npz"]["sample"]["p50_ms"]
+    share = 1.0 - rec["engine_decode_ms_b32"] / p50
+    log(f"HTTP share [{smi}]: /sample n=32 npz p50 {p50:.3f} ms of 50 requests against one "
+        f"engine decode call at 32 {rec['engine_decode_ms_b32']:.3f} ms (median of 16): "
+        f"{share:.1%} of the request")
+    # endurance: one epoch at batch 32 in bf16 (412 train frames: 12 steps),
+    # 17 + 17 launches a step and 14 per val batch (4 batches of 100 rows)
+    workdir = os.path.join(ROOT, "build", "chip_smoke_endurance")
+    out, counts = run(["--epochs", "1", "--n-train", "512", "--batch", "32",
+                       "--workdir", workdir], main=endurance.main, tag="endurance")
+    n_steps = out["steps"]
+    want = (FWD_PER_STEP * n_steps + FWD_PER_EVAL * math.ceil(100 / 32), BWD_PER_STEP * n_steps)
+    if (counts["launches"], counts["bwd_launches"]) != want or not out["checkpoints_kept"]:
+        raise AssertionError(f"endurance: {out}, counts {counts}, expected launches {want}")
+    rec["endurance"] = out
+    shutil.rmtree(workdir, ignore_errors=True)
+    rec["native_bvh"] = bvh_check()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"lab-rest: {rec['seconds']:.2f} s; band_apply {fwd}, band_apply_bwd {bwd} launches")
+    return rec, fwd, bwd
 
 
 def start_server(engine, **kw):
@@ -2290,6 +2537,7 @@ def main():
     log(f"DemoSuite modes, nz18 at batch 32 [{smi}]: " + json.dumps(demo_seconds))
     log(f"train step times [{smi}]: " + json.dumps(train_times))
     lab_lines, lab_counts = lab_phase(smi)
+    rest_rec, rest_fwd, rest_bwd = lab_rest_phase(model, ctx, smi)
     os.makedirs(os.path.dirname(RECORDS), exist_ok=True)
     with open(RECORDS, "w") as f:
         json.dump({"device": smi, "band_apply": records, "band_apply_bwd": bwd_records,
@@ -2299,7 +2547,7 @@ def main():
                    "microbatch_latency": mb_times, "demo_mode_seconds": demo_seconds,
                    "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times},
                    "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records},
-                   "artifact": artifact_rec}, f)
+                   "artifact": artifact_rec, "lab_rest": rest_rec}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -2308,8 +2556,9 @@ def main():
         "source": GATHER_SOURCE,
         "replaces": REPLACES,
         # the forward launches of the serve, train-mode, microbatch, demo,
-        # families and train-prod main paths
-        "launches": launches + run_fwd + mb_launches + demo_launches + fam_fwd + prod_fwd,
+        # families, train-prod and lab-rest main paths
+        "launches": (launches + run_fwd + mb_launches + demo_launches + fam_fwd + prod_fwd
+                     + rest_fwd),
         # worst f32 error over the batch-32 shapes of serving and training;
         # times and bounds summed over the seven band applies of one
         # batch-32 decode
@@ -2324,7 +2573,7 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES_BWD,
-        "launches": run_bwd + fam_bwd + prod_bwd,
+        "launches": run_bwd + fam_bwd + prod_bwd + rest_bwd,
         # worst f32 error of the addend variant over the train steps'
         # shapes (the CMR output conv's included); times and bounds summed
         # over the 17 backward applies of one flagship step

@@ -1,6 +1,7 @@
 """The port's copy of the host-side mesh precompute (`cape_tpu_torch.meshops`)
 against its original (`cape_tpu.meshops`): the shipped assets, the shipped
-pyramids, their orderings and a QSlim pyramid built from scratch, all
+pyramids, their orderings, the toy icosphere, the native BVH's nearest
+triangles and a QSlim pyramid built from scratch on either backend, all
 bit-equal."""
 
 import numpy as np
@@ -57,38 +58,84 @@ def test_load_or_build_takes_the_shipped_pyramid_for_the_canonical_plan():
     _same_pyramid(load_or_build(CANONICAL_DS_FACTORS), jax_assets.load_pyramid("for_demo"))
 
 
-def test_build_pyramid_matches(small_mesh, monkeypatch):
-    """QSlim decimation and upsample matrices on the toy icosphere. The port
-    keeps the numpy nearest-triangle backend only, so the JAX package's
-    native C++ BVH is taken out of its path for the comparison (the two may
-    pick another triangle for a point equidistant from two)."""
+@pytest.mark.parametrize("n", [0, 1, 2, 3])
+def test_icosphere_matches(n):
+    from cape_tpu.meshops.toy import icosphere as jax_icosphere
+    from cape_tpu_torch.meshops.toy import icosphere
+
+    for got, want in zip(icosphere(n), jax_icosphere(n), strict=True):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_native_nearest_triangles_match(small_mesh):
+    """The port's BVH (its copy of the C++ source, built at first use into
+    build/cape_tpu_torch/) against the JAX package's: the same faces and
+    bit-equal barycentric coordinates for seeded query points around
+    icosphere(3), on and off the surface."""
+    from cape_tpu.meshops import native_aabb as jax_native
+    from cape_tpu_torch.meshops import native_aabb
+
+    verts, faces = small_mesh
+    rng = np.random.default_rng(0)
+    queries = np.concatenate([
+        rng.standard_normal((300, 3)) * 1.5,
+        verts[rng.integers(0, len(verts), 100)] * rng.uniform(0.9, 1.1, (100, 1)),
+    ])
+    got, want = native_aabb.nearest_triangles(verts, faces, queries), \
+        jax_native.nearest_triangles(verts, faces, queries)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "native"])
+def test_build_pyramid_matches(small_mesh, monkeypatch, caplog, backend):
+    """QSlim decimation and upsample matrices on the toy icosphere, built by
+    both packages on the same nearest-triangle backend: numpy (each
+    package's native module taken out of its path) or the native C++ BVH
+    (each package's own build). Each upsample logs its backend."""
+    import logging
     import sys
 
     from cape_tpu.meshops.pyramid import build_pyramid as jax_build
     from cape_tpu_torch.meshops.pyramid import build_pyramid
 
-    monkeypatch.setitem(sys.modules, "cape_tpu.meshops.native_aabb", None)
+    if backend == "numpy":
+        monkeypatch.setitem(sys.modules, "cape_tpu.meshops.native_aabb", None)
+        monkeypatch.setitem(sys.modules, "cape_tpu_torch.meshops.native_aabb", None)
+    else:
+        from cape_tpu.meshops import native_aabb
+
+        native_aabb._load()   # the JAX package's BVH (built if missing)
     verts, faces = small_mesh
+    caplog.set_level(logging.INFO, logger="cape_tpu_torch.meshops.transfer")
     for factors in ([1, 2, 1, 2, 1, 2, 1, 1], [2, 2, 2, 2]):
         _same_pyramid(build_pyramid(verts, faces, factors), jax_build(verts, faces, factors))
+    built = [r.getMessage() for r in caplog.records if "built by" in r.getMessage()]
+    assert len(built) == 3 + 4
+    assert all(m.endswith(f"built by the {backend} backend") for m in built), built
 
 
 @pytest.mark.parametrize("factors", [[1, 2, 1, 2, 1, 2, 1, 1], [2, 2, 2, 2]])
-def test_upsamples_differ_from_the_native_bvh_only_at_ties(small_mesh, factors):
-    """The toy pyramid's upsample matrices from the port (numpy nearest
-    triangle) against `cape_tpu.meshops` with its native C++ BVH in the
-    path. Every row where the two differ is a tie: the two chosen triangles
+def test_upsamples_differ_from_the_native_bvh_only_at_ties(small_mesh, factors, monkeypatch):
+    """The toy pyramid's upsample matrices from the port's numpy nearest
+    triangle (its native BVH taken out of its path) against
+    `cape_tpu.meshops` with its native C++ BVH in the path. Every row where the two differ is a tie: the two chosen triangles
     lie equally far from the fine vertex, within 1e-12 of the mesh scale.
     Where both chose the same triangle, U @ coarse_verts agrees within 1e-9
     of the scale. Where they chose different triangles, each closest point
     lies at that same distance from the vertex, but the two points need not
     coincide: on the toy pyramid three vertices get points 6.8e-3 apart."""
+    import sys
+
     from cape_tpu.meshops import native_aabb
     from cape_tpu.meshops.pyramid import build_pyramid as jax_build
     from cape_tpu_torch.meshops.pyramid import build_pyramid
     from cape_tpu_torch.meshops.transfer import _nearest_numpy, closest_point_on_triangles
 
     native_aabb._load()   # the BVH is in the JAX package's path (built if missing)
+    monkeypatch.setitem(sys.modules, "cape_tpu_torch.meshops.native_aabb", None)
     verts, faces = small_mesh
     scale = float(np.ptp(verts, axis=0).max())
     got, want = build_pyramid(verts, faces, factors), jax_build(verts, faces, factors)

@@ -273,7 +273,8 @@ def test_import_loads_no_jax_flax_or_yaml():
         "       'data.packer', 'data.dataset_configs', 'train.tb_events', 'train.metrics',\n"
         "       'meshops.normals', 'tools.plot_metrics', 'tools.dtype_ablation',\n"
         "       'tools.opt_state_ab', 'tools.acceptance', 'tools.export_model',\n"
-        "       'tools.tf_ckpt_converter', 'tools.artifact_drill']\n"
+        "       'tools.tf_ckpt_converter', 'tools.artifact_drill', 'tools.endurance',\n"
+        "       'tools.flagship', 'meshops.toy', 'meshops.native_aabb']\n"
         "assert not [n for n in new if 'cape_tpu_torch.' + n not in names], names\n"
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "print(sorted(m for m in sys.modules\n"

@@ -1,7 +1,8 @@
 """The port's training tools and normal losses against the JAX package's, on
 the CPU: the face and vertex normal losses, plot_metrics' dashboard,
-acceptance's refusal without a packed dataset, and the dtype ablation and
-the optimizer-state A/B at a small width (the flagship template, nf=8)."""
+acceptance's refusal without a packed dataset, the dtype ablation and the
+optimizer-state A/B at a small width (the flagship template, nf=8), and the
+endurance run at that width."""
 
 import json
 import os
@@ -142,3 +143,62 @@ def test_dtype_ablation_and_opt_state_ab_run_narrow_on_the_cpu(tmp_path, monkeyp
             opt_state_ab.main([])
         with pytest.raises(RuntimeError, match="--device cpu"):
             dtype_ablation.main(["--workdir", str(tmp_path)])
+
+
+ENDURANCE_KEYS = {"steps", "epochs", "wall_s", "sustained_steps_per_sec",
+                  "sec_per_step_incl_overheads", "final_val_recon", "val_recon_first",
+                  "checkpoints_kept", "batch", "dtype", "device"}
+
+
+@pytest.fixture
+def narrow_flagship(monkeypatch):
+    from cape_tpu_torch.tools import flagship
+
+    for k, v in NARROW.items():
+        if k != "batch_size":
+            monkeypatch.setitem(flagship.FLAGSHIP, k, v)
+
+
+def test_endurance_runs_the_schedule_on_the_cpu(tmp_path, narrow_flagship, monkeypatch, capsys):
+    """tools.endurance on the flagship cut to nf=8, --device cpu: the
+    production Trainer.fit over the synthetic split (n_val=100, so 8 train
+    frames: 2 steps an epoch at batch 4), its checkpoints under
+    <workdir>/endurance_torch, and the JAX tool's JSON line with finite
+    val losses."""
+    from cape_tpu_torch.tools import endurance
+    from cape_tpu_torch.train.loop import Trainer
+
+    fits = []
+    real_fit = Trainer.fit
+    monkeypatch.setattr(Trainer, "fit", lambda self: fits.append(self.num_steps) or real_fit(self))
+    argv = ["--device", "cpu", "--epochs", "2", "--n-train", "108", "--batch", "4",
+            "--dtype", "float32", "--workdir", str(tmp_path)]
+    out = endurance.main(argv)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out and set(line) == ENDURANCE_KEYS
+    assert fits == [4] and line["steps"] == 4 and line["epochs"] == 2
+    assert line["device"] == "cpu" and line["batch"] == 4 and line["dtype"] == "float32"
+    assert np.isfinite(line["final_val_recon"]) and np.isfinite(line["val_recon_first"])
+    assert line["checkpoints_kept"] == 2
+    assert sorted(os.listdir(tmp_path / "endurance_torch" / "checkpoints")) and \
+        (tmp_path / "endurance_torch" / "metrics.jsonl").exists()
+
+
+def test_endurance_expect_final_is_a_gate_and_needs_a_gpu(tmp_path, narrow_flagship,
+                                                          monkeypatch, capsys):
+    """--expect-final passes on the run's own final_val_recon (6 decimals)
+    and raises on another; without a GPU and without --device cpu the run
+    raises before it builds anything."""
+    from cape_tpu_torch.tools import endurance, flagship
+    from cape_tpu_torch.train.loop import Trainer
+
+    monkeypatch.setattr(Trainer, "fit", lambda self: ([0.5, 0.2500001], 0.01))
+    argv = ["--device", "cpu", "--epochs", "1", "--n-train", "104", "--batch", "4",
+            "--workdir", str(tmp_path)]
+    assert endurance.main(argv + ["--expect-final", "0.25"])["matches_pinned_final"] == 0.25
+    with pytest.raises(AssertionError, match="final_val_recon 0.25 != expected 0.3"):
+        endurance.main(argv + ["--expect-final", "0.3"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(flagship, "flagship_setup", lambda *a, **k: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        endurance.main(["--epochs", "1"])
