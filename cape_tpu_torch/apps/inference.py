@@ -5,6 +5,13 @@ Counterpart of `cape_tpu.apps.inference`. Every device call is padded to
 the band-apply kernel route of `ops.cheb`). The public contract is host
 numpy in natural (template) vertex order; inputs are permuted into the
 banded device order and outputs un-permuted at this boundary.
+
+With `dp` (a `parallel.mesh.DataParallel` of N devices; the server's
+`--data_parallel N`), the engine holds a replica of the model and the
+context on each device and pads to batch_size x N rows, split in device
+order: every device's chunk is launched before any output is read, and the
+outputs come back in natural order. Per-row math does not depend on the
+batch, so the outputs are the single-device engine's.
 """
 
 from __future__ import annotations
@@ -38,28 +45,34 @@ def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:
 
 class BatchedCalls:
     """Host-side fixed-batch loop: each chunk is padded to `batch_size`
-    rows, sent to `device`, and its outputs come back as float32 numpy."""
+    rows, sent to `device`, and its outputs come back as float32 numpy.
+    With `devices` (N of them), each padded chunk is split into N equal
+    parts in device order, every part's call is launched before any output
+    is read, and the outputs are joined in that order."""
 
     batch_size: int
     device: torch.device
+    devices: list[torch.device] | None = None
 
     def _batched(self, fn, n: int, *arrays):
         if n <= 0:
             raise ValueError("empty batch: callers must guard n == 0 (nothing to infer)")
         outs = None
         bs = self.batch_size
+        devices = self.devices or [self.device]
+        per = bs // len(devices)
         for begin in range(0, n, bs):
             end = min(begin + bs, n)
-            padded = [
-                torch.from_numpy(_pad_to(a[begin:end], bs)).to(self.device)
-                for a in arrays
-            ]
+            padded = [_pad_to(a[begin:end], bs) for a in arrays]
+            launched = []
             with torch.inference_mode():
-                res = fn(*padded)
-            # one tensor, or a tuple or list of them (an exported program's
-            # outputs), on `device`
-            res = res if isinstance(res, (tuple, list)) else (res,)
-            res = [r.float().cpu().numpy()[: end - begin] for r in res]
+                for i, d in enumerate(devices):
+                    res = fn(*(torch.from_numpy(p[i * per: (i + 1) * per]).to(d) for p in padded))
+                    # one tensor, or a tuple or list of them (an exported
+                    # program's outputs), on `d`
+                    launched.append(res if isinstance(res, (tuple, list)) else (res,))
+            res = [np.concatenate([r[j].float().cpu().numpy() for r in launched])[: end - begin]
+                   for j in range(len(launched[0]))]
             if outs is None:
                 outs = [[] for _ in res]
             for o, r in zip(outs, res):
@@ -67,16 +80,37 @@ class BatchedCalls:
         return tuple(np.concatenate(o, axis=0) for o in outs)
 
 
+def _indexed(device) -> torch.device:
+    """`device` as its tensors report it (cuda -> cuda:<current>)."""
+    return torch.empty(0, device=device).device
+
+
 class InferenceEngine(BatchedCalls):
     """Public contract is in natural (template) vertex order.
 
-    `calls` counts the padded device calls per stage ("embed", "encode",
-    "decode", "sample"), so a caller can relate kernel launches to them."""
+    `calls` counts the device calls per stage ("embed", "encode", "decode",
+    "sample"; with `dp`, one per device and padded call), so a caller can
+    relate kernel launches to them. `dp` (parallel.mesh.DataParallel
+    without a group) replicates the model and the context on its devices,
+    `batch_size` rows on each (see the module docstring); `device` is then
+    ignored."""
 
-    def __init__(self, model: CAPE, ctx: GraphContext, batch_size: int = 16, device=None):
-        self.device = torch.device(device) if device is not None else next(model.parameters()).device
-        self.model = model.to(self.device)
-        self.ctx = ctx.to(self.device)
+    def __init__(self, model: CAPE, ctx: GraphContext, batch_size: int = 16, device=None,
+                 dp=None):
+        if dp is not None:
+            if dp.group is not None:
+                raise ValueError("InferenceEngine drives the devices of one process (a "
+                                 "DataParallel without a process group)")
+            self.devices = [_indexed(d) for d in dp.devices]
+            replicas = zip(self.devices, dp.replicate(model), dp.replicate(ctx))
+            self._replicas = {d: (m, c) for d, m, c in replicas}
+            batch_size *= len(self.devices)
+            self.device = self.devices[0]
+        else:
+            self.device = _indexed(device if device is not None
+                                   else next(model.parameters()).device)
+            self._replicas = {self.device: (model.to(self.device), ctx.to(self.device))}
+        self.model, self.ctx = self._replicas[self.device]
         self.batch_size = batch_size
         self.vertex_perm = ctx.perm0
         self._inv_perm = None
@@ -86,9 +120,11 @@ class InferenceEngine(BatchedCalls):
         self.calls = {"embed": 0, "encode": 0, "decode": 0, "sample": 0}
 
     def _count(self, stage: str, fn):
+        """fn(model, ctx, *tensors) as a call of the tensors alone, on the
+        replica of their device, counted in `calls[stage]`."""
         def call(*args):
             self.calls[stage] += 1
-            return fn(*args)
+            return fn(*self._replicas[args[0].device], *args)
 
         return call
 
@@ -98,7 +134,8 @@ class InferenceEngine(BatchedCalls):
         pose = np.asarray(pose, np.float32)
         clo = np.asarray(clo, np.float32)
         return self._batched(
-            self._count("embed", self.model.embed_conditions), len(pose), pose, clo
+            self._count("embed", lambda m, c, p, cl: m.embed_conditions(p, cl)), len(pose),
+            pose, clo,
         )
 
     def _to_device_order(self, disp: np.ndarray) -> np.ndarray:
@@ -117,9 +154,9 @@ class InferenceEngine(BatchedCalls):
         pose = np.asarray(pose, np.float32)
         clo = np.asarray(clo, np.float32)
 
-        def fn(d, p, c):
-            y, y2 = self.model.embed_conditions(p, c)
-            zm, zl = self.model.encode(self.ctx, d, y, y2)
+        def fn(model, ctx, d, p, c):
+            y, y2 = model.embed_conditions(p, c)
+            zm, zl = model.encode(ctx, d, y, y2)
             return zm, zl, y, y2
 
         return self._batched(self._count("encode", fn), len(disp), disp, pose, clo)
@@ -131,7 +168,7 @@ class InferenceEngine(BatchedCalls):
         n = len(z_total)
         y, y2 = broadcast_conditions(y, y2, n)
         (out,) = self._batched(
-            self._count("decode", lambda z, a, b: self.model.decode(self.ctx, z, a, b)),
+            self._count("decode", lambda m, c, z, a, b: m.decode(c, z, a, b)),
             n, z_total, y, y2,
         )
         return self._to_natural_order(out)
@@ -148,7 +185,8 @@ class InferenceEngine(BatchedCalls):
             seed = 0 if rng is None else int(rng) % (1 << 32)
             eps = prng.normal_rows(seed, len(z_mean), z_mean.shape[1])
             (z,) = self._batched(
-                self._count("sample", self.model.sample_z), len(z_mean), z_mean, z_logvar, eps
+                self._count("sample", lambda m, c, zm, zl, e: m.sample_z(zm, zl, e)),
+                len(z_mean), z_mean, z_logvar, eps,
             )
         else:
             z = z_mean

@@ -26,15 +26,29 @@ table (`models.summary.describe`) first.
 The data is the packed dataset under data/datasets/<dataset> if it
 exists, else a synthetic stand-in, with a loud notice. It runs on the
 GPU; without one it raises unless `--device cpu` asks for the CPU.
+
+Data parallelism (train mode; `parallel.mesh`), one process per device:
+  * under a launcher, every rank joins its group and takes
+    cuda:LOCAL_RANK:
+      torchrun --nproc_per_node 4 -m cape_tpu_torch.apps.main --config <preset> \
+          --mode train --name <run> --batch_size 64
+  * `--data_parallel N` (N > 1) without one starts N local ranks itself,
+    one per GPU (more than the GPUs present raises), as the JAX package's
+    command line shards over N devices; `--device cpu --data_parallel N`
+    starts N ranks on the CPU (Gloo).
+The batch size is the global batch, which N must divide. The lead rank
+alone writes the run directory and, after training, runs the DemoSuite.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 import sys
 
 import torch
+import torch.distributed as dist
 
 from cape_tpu_torch.apps.demos import DemoSuite
 from cape_tpu_torch.apps.inference import InferenceEngine
@@ -48,6 +62,8 @@ from cape_tpu_torch.data.synthetic import synthetic_bodydata
 from cape_tpu_torch.models import summary
 from cape_tpu_torch.models.cape import CAPE, DTYPES
 from cape_tpu_torch.ops.sparse import build_graph_context
+from cape_tpu_torch.parallel import multihost
+from cape_tpu_torch.parallel.mesh import local_devices, make_mesh
 from cape_tpu_torch.train.checkpoint import latest_checkpoint
 from cape_tpu_torch.train.loop import Trainer
 
@@ -115,9 +131,10 @@ def require_device(device) -> None:
 @dataclasses.dataclass
 class RunResult:
     """What run() did: the Trainer (train mode), the DemoSuite (its engine
-    counts the device calls) and test_model's metrics (train and test)."""
+    counts the device calls; None on a data-parallel run's ranks but the
+    lead) and test_model's metrics (train and test)."""
 
-    demos: DemoSuite
+    demos: DemoSuite | None
     trainer: Trainer | None = None
     test: dict | None = None
 
@@ -149,6 +166,8 @@ def run(cfg: CAPEConfig, workdir: str = "results", device="cuda",
         _, t_step = trainer.fit()
         print(f"training done: {t_step * 1000:.1f} ms/step (host clock, eval included)",
               flush=True)
+        if not trainer.lead:
+            return RunResult(None, trainer)
     else:
         restore_params(cfg, model, ctx, workdir)
     engine = InferenceEngine(model, ctx, cfg.batch_size, device=device)
@@ -164,6 +183,59 @@ def run(cfg: CAPEConfig, workdir: str = "results", device="cuda",
     return result
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_rank(cfg: CAPEConfig, workdir: str, device: torch.device, *address) -> None:
+    """run() as one rank of a data-parallel group on `device` (NCCL for a
+    GPU, Gloo for the CPU), joined at `address` (multihost.initialize's
+    coordinator address, process count and rank) or, with none, through
+    the launcher's environment."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    multihost.initialize(*address, backend="gloo" if device.type == "cpu" else "nccl")
+    try:
+        run(cfg, workdir, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank(rank: int, n: int, port: int, cfg: CAPEConfig, workdir: str, device_type: str) -> None:
+    """One rank of `--data_parallel N` started by main (torch.multiprocessing)."""
+    if device_type == "cpu":   # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+        device = torch.device("cpu")
+    else:
+        device = torch.device("cuda", rank)
+    _run_rank(cfg, workdir, device, f"localhost:{port}", n, rank)
+
+
+def run_data_parallel(cfg: CAPEConfig, workdir: str = "results", device="cuda") -> None:
+    """Train with cfg.data_parallel local ranks, one process per device of
+    `device`'s type (CPU ranks share the CPU); a rank's failure fails the
+    run. More ranks than GPUs raises before any starts."""
+    import torch.multiprocessing as mp
+
+    n, device_type = cfg.data_parallel, torch.device(device).type
+    require_device(device)
+    if device_type != "cpu":
+        make_mesh(n, local_devices(device_type))   # raises on an over-request
+    if cfg.batch_size % n:
+        raise ValueError(
+            f"data_parallel={n} does not divide batch_size={cfg.batch_size}; the batch "
+            "axis is sharded evenly across the mesh"
+        )
+    if device_type != "cpu":
+        from cape_tpu_torch.ops.kernels.build import band_gather_lib
+
+        band_gather_lib()   # the ranks load this build and do not compile it again
+    mp.start_processes(_rank, args=(n, _free_port(), cfg, workdir, device_type), nprocs=n,
+                       join=True, start_method="spawn")
+
+
 def main(argv=None):
     import argparse
 
@@ -176,7 +248,13 @@ def main(argv=None):
     if not cfg.name:
         print("error: --name is required", file=sys.stderr)
         sys.exit(2)
-    run(cfg, own.workdir, own.device)
+    if cfg.mode == "train" and multihost.launched():   # a rank of torchrun
+        require_device(own.device)
+        _run_rank(cfg, own.workdir, multihost.rank_device(torch.device(own.device).type))
+    elif cfg.mode == "train" and cfg.data_parallel > 1:
+        run_data_parallel(resolve_config(cfg), own.workdir, own.device)
+    else:
+        run(cfg, own.workdir, own.device)
 
 
 if __name__ == "__main__":

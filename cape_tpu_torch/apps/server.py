@@ -42,7 +42,12 @@ reaches every request of its call as a 500.
 
 SIGTERM or SIGINT drains: the server stops accepting, responses carry
 `Connection: close`, and it exits once every request in flight has been
-answered (30 s at most). Not ported: --data_parallel.
+answered (30 s at most).
+
+`--data_parallel N` (N > 1) serves over N local devices of `--device`'s
+kind, for bulk throughput, as the JAX server shards its mesh: the engine
+holds a replica per device, batch_size rows on each (apps.inference). More
+devices than there are raises before anything is built.
 """
 
 from __future__ import annotations
@@ -715,18 +720,23 @@ def main(argv=None):
         if not cfg.name:
             print("error: --name is required", file=sys.stderr)
             sys.exit(2)
-        if cfg.data_parallel > 1:
-            raise NotImplementedError(
-                "--data_parallel is not ported to cape_tpu_torch yet (one device per server)"
-            )
         require_device(own.device)
+        # --data_parallel N > 1: one server process drives N devices (batch
+        # axis split, batch_size rows per device) for bulk throughput; the
+        # default stays one device
+        dp = None
+        if cfg.data_parallel > 1:
+            from cape_tpu_torch.parallel.mesh import DataParallel, local_devices
+
+            dp = DataParallel(cfg.data_parallel, local_devices(torch.device(own.device).type))
+            print(f"serving over a {dp.num_devices}-device mesh", flush=True)
         model = CAPE(cfg)
         ctx = build_context(cfg)
         if own.fresh_init:
             model.init_params(torch.Generator().manual_seed(cfg.seed), ctx)
         else:
             restore_params(cfg, model, ctx, own.workdir)
-        engine = InferenceEngine(model, ctx, cfg.batch_size, device=own.device)
+        engine = InferenceEngine(model, ctx, cfg.batch_size, device=own.device, dp=dp)
     name = engine.model.cfg.name
 
     gmm = None

@@ -74,7 +74,7 @@ class CAPEConfig:
     vis_demo: bool = False
 
     # ---- extensions of the JAX package, same names and defaults ----
-    compute_dtype: str = "float32"         # float32 | bfloat16
+    compute_dtype: str = "float32"         # float32 | bfloat16 | float16
     op_mode: str = "banded"                # only banded is ported
     remat: bool = False
     fold_conditions: bool = True

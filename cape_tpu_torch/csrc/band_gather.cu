@@ -9,7 +9,8 @@
 // (the zero pad of the band, unused slots at column -1, columns past the
 // end of x): they are masked, never read. Each value is rounded to x's
 // dtype, as the dense blocks of that dtype hold it; sums are f32; the
-// addend is added in f32 and y is rounded once to x's dtype (f32 or bf16).
+// addend is added in f32 and y is rounded once to x's dtype (f32, bf16 or
+// f16).
 //
 // Replaces two TPU kernels of cape_tpu/ops/pallas/cheb_kernel.py:
 //   * `_pallas_band_apply_v2` (body `_kernel_v2`), the band apply that the
@@ -30,8 +31,8 @@
 // (113 MB at [32, 6912, 64] f32), so the least time is reading x once and
 // writing y once (and reading the addend once). What the design does
 // about it:
-//   * Lanes run along the channels with 16-byte loads and stores (4 f32 or
-//     8 bf16 channels a lane): 16 lanes cover a C = 64 f32 row of one
+//   * Lanes run along the channels with 16-byte loads and stores (4 f32, or
+//     8 bf16 or f16 channels a lane): 16 lanes cover a C = 64 f32 row of one
 //     sample, so a warp moves whole 256-byte rows. A C that is not a
 //     multiple of the vector width (or a pointer not 16-byte aligned)
 //     takes the same kernel with one element per access.
@@ -57,7 +58,10 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -72,17 +76,21 @@ __device__ __align__(16) unsigned char zero16[16];
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
 
 // One access: VEC consecutive elements of T, 16 bytes (and 16-byte
 // aligned) when VEC > 1. A load keeps the raw bytes and `unpack` widens
 // them to f32 where they are used, so a load in flight holds 4 registers
-// in either dtype.
+// in every dtype.
 template <typename T, int VEC> struct Access { using raw = uint4; };
 template <typename T> struct Access<T, 1> { using raw = T; };
 
@@ -101,12 +109,20 @@ __device__ __forceinline__ void unpack(const typename Access<T, VEC>::raw& q, fl
       static_assert(VEC == 4, "an f32 access is 4 elements");
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(u[e]);
-    } else {
+    } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
       static_assert(VEC == 8, "a bf16 access is 8 elements");
 #pragma unroll
       for (int e = 0; e < 4; ++e) {        // a bf16 is the high half of its f32
         v[2 * e] = __uint_as_float(u[e] << 16);
         v[2 * e + 1] = __uint_as_float(u[e] & 0xffff0000u);
+      }
+    } else {
+      static_assert(std::is_same_v<T, __half> && VEC == 8, "an f16 access is 8 elements");
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {        // two f16 a word, widened by the intrinsic
+        const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u[e]));
+        v[2 * e] = f.x;
+        v[2 * e + 1] = f.y;
       }
     }
   }
@@ -118,11 +134,17 @@ __device__ __forceinline__ void store_rounded(T* p, const float (&v)[VEC]) {
     p[0] = from_f32<T>(v[0]);
   } else if constexpr (sizeof(T) == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     uint4 q;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
 #pragma unroll
     for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  } else {
+    uint4 q;
+    __half2* h = reinterpret_cast<__half2*>(&q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = __floats2half2_rn(v[2 * e], v[2 * e + 1]);
     *reinterpret_cast<uint4*>(p) = q;
   }
 }
@@ -247,7 +269,7 @@ int launch(const void* x, const int* cols, const float* vals, const void* addend
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x [B, rows_in, C], y [B, rows_out, C] and
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. x [B, rows_in, C], y [B, rows_out, C] and
 // the optional addend (nullptr for none; else [B, rows_out, C], not aliasing
 // y) are contiguous, in that dtype; cols (int32) and vals (float32) are the
 // pack's [>= rows_out, W] arrays, contiguous; all on the device of `stream`.
@@ -263,6 +285,7 @@ extern "C" int cape_band_gather(const void* x, const void* cols, const void* val
   const float* v = static_cast<const float*>(vals);
   if (dtype == 0) return launch<float>(x, c, v, addend, y, B, rows_in, C, W, rows_out, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, c, v, addend, y, B, rows_in, C, W, rows_out, s);
+  if (dtype == 2) return launch<__half>(x, c, v, addend, y, B, rows_in, C, W, rows_out, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,7 +30,7 @@ from cape_tpu_torch.ops.banded import padded_size
 from cape_tpu_torch.ops.cheb import cheb_conv, cheb_conv_folded
 from cape_tpu_torch.ops.sparse import GraphContext
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _pad_vertex_rows(x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +51,7 @@ def _cond_hidden_width(y_dim: int, nz_cond: int) -> int:
 def unsupported(cfg: CAPEConfig) -> list[str]:
     """The parts of `cfg` this port does not cover."""
     if cfg.compute_dtype not in DTYPES:
-        return [f"compute_dtype={cfg.compute_dtype!r} (float32 or bfloat16)"]
+        return [f"compute_dtype={cfg.compute_dtype!r} (float32, bfloat16 or float16)"]
     return []
 
 

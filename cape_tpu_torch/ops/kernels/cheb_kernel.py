@@ -54,18 +54,27 @@ RB = 128
 # cheb2_banded_v3); of fused_cheb2 with a group of 1 (kernel 1's case) and
 # with a larger group (kernel 4's); of banded_apply_bm; of ring_cheb2 with
 # one row tile per block (kernel 5's case) and with two (kernel 6's). The
-# CPU/meta plain paths count in none of them. bf16_launches counts the
-# band_apply launches (either direction) on bf16 tensors again.
+# CPU/meta plain paths count in none of them. bf16_launches and f16_launches
+# count the band_apply launches (either direction) on bf16 and f16 tensors
+# again.
 launches = 0
 bwd_launches = 0
 bf16_launches = 0
+f16_launches = 0
 fused1_launches = 0
 fused_launches = 0
 bm_launches = 0
 ring_launches = 0
 ring2_launches = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtype codes of the band-gather kernel (csrc/band_gather.cu); the fused
+# and windowed conv kernels (csrc/cheb2_fused.cu) take the first two only
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_FUSED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
@@ -76,19 +85,23 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _check_cuda(name: str, x: torch.Tensor, **others: torch.Tensor | None) -> None:
+def _check_cuda(name: str, x: torch.Tensor, dtypes=_DTYPE_CODES,
+                **others: torch.Tensor | None) -> None:
     """What every kernel wrapper checks before a launch: x is a CUDA tensor,
     and `_check_tensors` holds."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    _check_tensors(name, x, **others)
+    _check_tensors(name, x, dtypes, **others)
 
 
-def _check_tensors(name: str, x: torch.Tensor, **others: torch.Tensor | None) -> None:
-    """x is contiguous and of a dtype the kernels take, and each other tensor
-    given (not None) is contiguous, of x's dtype and on x's device."""
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {x.dtype} (kernel takes float32, bfloat16)")
+def _check_tensors(name: str, x: torch.Tensor, dtypes=_DTYPE_CODES,
+                   **others: torch.Tensor | None) -> None:
+    """x is contiguous and of a dtype in `dtypes` (the kernel's), and each
+    other tensor given (not None) is contiguous, of x's dtype and on x's
+    device."""
+    if x.dtype not in dtypes:
+        names = ", ".join(_name(d) for d in dtypes)
+        raise TypeError(f"{name}: dtype {x.dtype} (kernel takes {names})")
     for k, t in {"x": x, **others}.items():
         if t is None:
             continue
@@ -185,8 +198,8 @@ def band_apply(
     band_apply_plain. A pack given is checked against the blocks on every
     device. A launch with an addend counts in `bwd_launches` (only the
     backward of cheb2_banded_v3 passes one), else in `launches`; on bf16
-    tensors, also in `bf16_launches`."""
-    global launches, bwd_launches, bf16_launches
+    tensors, also in `bf16_launches`, on f16 tensors in `f16_launches`."""
+    global launches, bwd_launches, bf16_launches, f16_launches
     if pack is not None or x.device.type not in ("cpu", "meta"):
         _check_pack("band_apply", pack, blocks, pad_left)
     if x.device.type in ("cpu", "meta"):
@@ -209,6 +222,7 @@ def band_apply(
     else:
         bwd_launches += 1
     bf16_launches += x.dtype == torch.bfloat16
+    f16_launches += x.dtype == torch.float16
     return y
 
 
@@ -368,7 +382,7 @@ def fused_cheb2(
         _check_pack("fused_cheb2", pack, blocks, pad_left)
     if x.device.type in ("cpu", "meta"):
         return fused_cheb2_plain(x, blocks, pad_left, rows_out, w0, w1)
-    _check_cuda("fused_cheb2", x, blocks=blocks, w0=w0, w1=w1)
+    _check_cuda("fused_cheb2", x, _FUSED_DTYPES, blocks=blocks, w0=w0, w1=w1)
     if blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
         raise ValueError(f"fused_cheb2: blocks {tuple(blocks.shape)} must be [S, T, {RB}, {RB}]")
     T = blocks.shape[1]
@@ -537,7 +551,7 @@ def ring_cheb2(
     global ring_launches, ring2_launches
     if tiles not in WINDOW_TILES:
         raise ValueError(f"ring_cheb2: tiles={tiles} (the kernel takes {WINDOW_TILES})")
-    _check_tensors("ring_cheb2", x, blocks=blocks, w0=w0, w1=w1)
+    _check_tensors("ring_cheb2", x, _FUSED_DTYPES, blocks=blocks, w0=w0, w1=w1)
     if x.dim() != 3 or blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
         raise ValueError(
             f"ring_cheb2: x {tuple(x.shape)} must be [B, rows, C] and blocks "

@@ -20,8 +20,23 @@ stopped and resumed takes the steps an uninterrupted run takes.
 cfg.profile_steps > 0 captures that many steps after the first of the run
 with torch.profiler (`<run>/profile/trace.json`).
 
+Data parallelism (`dp`, a `parallel.mesh.DataParallel` over a process
+group; built over the default group when one is initialised): every rank
+holds the train split and the same parameters, gathers its rows
+(`local_rows`) of each global batch from the global index streams, takes
+its rows of the global noise drawn from (seed, step), and the train step
+averages the ranks' gradients, so every rank applies the single-process
+run's update (up to the order of float sums). The metrics that are read
+are reduced over the ranks: the losses at each screen (so every rank
+raises together), the metrics at each log point, the per-sample eval
+metrics (`all_gather_rows`). Only the lead rank touches the filesystem:
+the wipe on restart, metrics.jsonl and TensorBoard, checkpoints (a failed
+write is broadcast, so every rank raises), the profile and the dashboard;
+on resume the lead restores and broadcasts the parameters, the optimizer
+state and the step.
+
 Not ported: the K-step scan of the JAX package (it exists to save round
-trips to a remote TPU) and data parallelism.
+trips to a remote TPU).
 """
 
 from __future__ import annotations
@@ -33,11 +48,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cape_tpu_torch.core.config import CAPEConfig
 from cape_tpu_torch.data.loader import BatchStream, BodyData
 from cape_tpu_torch.models.cape import CAPE
 from cape_tpu_torch.ops.sparse import GraphContext
+from cape_tpu_torch.parallel.mesh import DataParallel
 from cape_tpu_torch.tools.plot_metrics import plot_metrics
 from cape_tpu_torch.train import checkpoint as ckpt
 from cape_tpu_torch.train.metrics import MetricsLogger, profile_steps
@@ -53,8 +70,22 @@ def noise(shape, device, *key: int) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device)
 
 
-def _unsupported(cfg: CAPEConfig) -> list[str]:
-    return ["--data_parallel (one device per run)"] if cfg.data_parallel > 1 else []
+def default_dp(cfg: CAPEConfig, device) -> DataParallel:
+    """The Trainer's data parallelism when none is given: over the default
+    process group if one is initialised (cfg.data_parallel, if > 0, must be
+    its size), else this process's one device (cfg.data_parallel > 1 then
+    asks for more devices than the process drives, and raises). The group's
+    size must divide the batch."""
+    if dist.is_initialized():
+        dp = DataParallel(cfg.data_parallel, devices=[device], group=dist.group.WORLD)
+    else:
+        dp = DataParallel(cfg.data_parallel, devices=[device])
+    if cfg.batch_size % dp.num_devices:
+        raise ValueError(
+            f"data_parallel={dp.num_devices} does not divide batch_size="
+            f"{cfg.batch_size}; the batch axis is sharded evenly across the mesh"
+        )
+    return dp
 
 
 class Trainer:
@@ -65,16 +96,20 @@ class Trainer:
         ctx: GraphContext,
         data: BodyData,
         workdir: str = "results",
+        dp: DataParallel | None = None,
     ):
         if not cfg.name:
             raise ValueError("config.name must be set (run/checkpoint identity)")
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(
-                "not ported to cape_tpu_torch yet: " + "; ".join(missing)
-            )
         self.cfg = cfg
         self.device = next(model.parameters()).device
+        self.dp = default_dp(cfg, self.device) if dp is None else dp
+        if self.dp.devices != [self.device]:
+            raise ValueError(f"the model is on {self.device}, the rank's device is "
+                             f"{self.dp.devices}")
+        # multi-process runs: every rank computes; only the lead touches the
+        # filesystem (the wipe, metrics, checkpoints, profile, dashboard)
+        self.lead = self.dp.lead
+        self.rows = self.dp.local_rows(cfg.batch_size)
         self.model = model
         self.ctx = ctx.to(self.device)
         self.data = data
@@ -106,28 +141,66 @@ class Trainer:
     def run_steps(self, k: int, stream_g: BatchStream, stream_d: BatchStream) -> dict:
         """k train steps back to back, each on a batch gathered on the device
         by the next indices of the G and D streams, its noise seeded from
-        (seed, step); no host sync. Returns the last step's metrics (device
-        tensors). Trainer.fit takes its steps here, as does the lab's
-        `step` and `trace` (tools.perf_lab)."""
+        (seed, step); no host sync. Under data parallelism each rank takes
+        its rows of the global batch and of the global noise, and the ranks'
+        gradients are averaged. Returns the last step's metrics (device
+        tensors, this rank's own). Trainer.fit takes its steps here, as does
+        the lab's `step` and `trace` (tools.perf_lab)."""
         cfg = self.cfg
+        lo, hi = self.rows
+        reduce = None if self.dp.group is None else self.dp.all_reduce_mean
         for _ in range(k):
-            batch = self._gather(stream_g.next_indices(), stream_d.next_indices())
-            eps = noise((cfg.batch_size, cfg.nz), self.device, cfg.seed, self.state.step)
-            metrics, _ = train_step(self.state, self.ctx, batch, eps)
+            batch = self._gather(stream_g.next_indices()[lo:hi], stream_d.next_indices()[lo:hi])
+            eps = noise((cfg.batch_size, cfg.nz), self.device, cfg.seed, self.state.step)[lo:hi]
+            metrics, _ = train_step(self.state, self.ctx, batch, eps, reduce=reduce)
         return metrics
 
     def init_or_restore(self) -> int:
         """restart=True wipes the run directory; restart=False restores the
         newest readable checkpoint into the train state. Returns the step
-        the run starts at."""
+        the run starts at. Under data parallelism the lead alone wipes (the
+        others wait for it) or restores, and broadcasts what it restored:
+        the parameters, every optimizer buffer and count, and the step (the
+        parameters also when it restored nothing, so that every rank starts
+        from the lead's)."""
+        dp = self.dp
         if self.cfg.restart:
-            shutil.rmtree(self.run_dir, ignore_errors=True)
-            os.makedirs(self.ckpt_dir, exist_ok=True)
+            if self.lead:
+                shutil.rmtree(self.run_dir, ignore_errors=True)
+                os.makedirs(self.ckpt_dir, exist_ok=True)
+            dp.barrier()
         else:
-            path = ckpt.restore_latest(self.ckpt_dir, self.state)
+            path = ckpt.restore_latest(self.ckpt_dir, self.state) if self.lead else None
             if path is not None:
                 print(f"resumed from {path} at step {self.state.step}", flush=True)
+            if dp.group is not None:
+                tx = self.state.tx
+                restored, self.state.step, tx.count["g"], tx.count["d"] = dp.broadcast_ints(
+                    [path is not None, self.state.step, tx.count["g"], tx.count["d"]])
+                if restored:
+                    dp.replicate(tx.state_tensors(dict(self.model.named_parameters())))
+        if dp.group is not None:
+            dp.replicate(self.model)
         return self.state.step
+
+    def _save_checkpoint(self, step: int) -> None:
+        """The lead writes the checkpoint (and the parameter histograms);
+        under data parallelism its failure is broadcast, so that every rank
+        raises instead of waiting in the next step's collective."""
+        err = None
+        if self.lead:
+            try:
+                ckpt.save_checkpoint(self.ckpt_dir, self.state, step, keep=self.cfg.checkpoint_keep)
+                if self._logger.tb is not None:
+                    self._logger.tb.add_param_histograms(step, self.model.state_dict())
+            except Exception as e:  # raised below, after every rank has heard of it
+                err = e
+        if self.dp.group is not None and not self.dp.broadcast_ints([err is None])[0]:
+            if err is not None:
+                raise err
+            raise RuntimeError("checkpoint write failed on the lead process")
+        if err is not None:
+            raise err
 
     def fit(self):
         """Train for cfg.num_epochs (more, on a resumed run). Returns (val
@@ -135,7 +208,8 @@ class Trainer:
         cfg = self.cfg
         seed = cfg.seed
         start_step = self.init_or_restore()
-        logger = MetricsLogger(self.run_dir, tensorboard=cfg.tensorboard)
+        logger = self._logger = MetricsLogger(self.run_dir, tensorboard=cfg.tensorboard,
+                                              write=self.lead)
         n = len(self.data.disp_train)
         stream_g = BatchStream(n, cfg.batch_size, seed)
         stream_d = BatchStream(n, cfg.batch_size, seed + 1)
@@ -156,7 +230,8 @@ class Trainer:
                 done = step - start_step
                 # the trace takes the steps after the run's first (cold) one,
                 # unless the run has only one
-                capture = profiled < cfg.profile_steps and (done > 0 or self.num_steps == 1)
+                capture = (self.lead and profiled < cfg.profile_steps
+                           and (done > 0 or self.num_steps == 1))
                 if capture and profiled == 0:
                     profiler.enter_context(profile_steps(os.path.join(self.run_dir, "profile")))
                 metrics = self.run_steps(1, stream_g, stream_d)
@@ -170,7 +245,10 @@ class Trainer:
                 if len(pending) >= screen_every or epoch_end:
                     self._screen(pending)
                     pending = []
-                if cfg.log_every_steps and step % cfg.log_every_steps == 0:
+                logged = cfg.log_every_steps and step % cfg.log_every_steps == 0
+                if logged or epoch_end:
+                    metrics = self.dp.all_reduce_mean(metrics)   # the global batch's
+                if logged:
                     logger.log(step, metrics)
                 if not epoch_end:
                     continue
@@ -188,21 +266,20 @@ class Trainer:
                 m["sec_per_step"] = (time.time() - t_start) / (done + 1)
                 m["step_ms"] = step_ms  # train steps only: no eval, no checkpoint
                 logger.log(step, m, echo=True)
-                ckpt.save_checkpoint(self.ckpt_dir, self.state, step + 1, keep=cfg.checkpoint_keep)
-                if logger.tb is not None:
-                    logger.tb.add_param_histograms(step + 1, self.model.state_dict())
+                self._save_checkpoint(step + 1)
                 t_mark, steps_since = time.perf_counter(), 0
         finally:
             profiler.close()
             logger.close()
-        if val_losses:  # an epoch ended, so metrics.jsonl has a record
+        if val_losses and self.lead:  # an epoch ended, so metrics.jsonl has a record
             plot_metrics(self.run_dir)
         return val_losses, (time.time() - t_start) / max(self.num_steps, 1)
 
     def _screen(self, pending: list[tuple[int, torch.Tensor]]) -> None:
         """Fail fast, naming the step, on a non-finite loss: a NaN that keeps
         training poisons every later checkpoint."""
-        losses = torch.stack([v for _, v in pending]).cpu().numpy()
+        losses = self.dp.all_reduce_mean([torch.stack([v for _, v in pending])])[0]
+        losses = losses.cpu().numpy()
         bad = ~np.isfinite(losses).all(axis=1)
         if bad.any():
             i = int(np.argmax(bad))
@@ -216,7 +293,9 @@ class Trainer:
         """Mean per-sample recon/kl/edge over a split, in batches of
         cfg.batch_size; the tail batch is padded with zero rows, which are
         dropped before the mean. The noise of the batch at row offset
-        `begin` is seeded from (seed, key, begin)."""
+        `begin` is seeded from (seed, key, begin). Under data parallelism
+        each rank evaluates its rows of each padded batch and
+        `all_gather_rows` brings every rank's per-sample metrics to all."""
         cfg = self.cfg
         if split == "val":
             if self._val_data is None:
@@ -225,16 +304,19 @@ class Trainer:
         else:
             data = self._on_device(split)
         n, bs = len(data["disp"]), cfg.batch_size
+        lo, hi = self.rows
         sums: dict[str, float] = {}
         with torch.inference_mode():
             for begin in range(0, n, bs):
                 rows = min(bs, n - begin)
                 batch = {
-                    k: torch.cat([v[begin : begin + rows], v.new_zeros((bs - rows,) + v.shape[1:])])
+                    k: torch.cat([v[begin : begin + rows],
+                                  v.new_zeros((bs - rows,) + v.shape[1:])])[lo:hi]
                     for k, v in data.items()
                 }
-                eps = noise((bs, cfg.nz), self.device, cfg.seed, key, begin)
+                eps = noise((bs, cfg.nz), self.device, cfg.seed, key, begin)[lo:hi]
                 _, metrics = eval_step(self.model, cfg, self.ctx, batch, eps)
+                metrics = self.dp.all_gather_rows(metrics, bs)
                 for k, v in metrics.items():
                     sums[k] = sums.get(k, 0.0) + float(v[:rows].double().sum())
         return {k: v / max(n, 1) for k, v in sums.items()}

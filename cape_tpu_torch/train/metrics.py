@@ -36,18 +36,24 @@ class MetricsLogger:
     """Append-only JSONL metrics of a run, with EMA-smoothed G/D losses.
     tensorboard=True also mirrors every logged scalar into a TensorBoard
     event file in run_dir (`self.tb`, which also takes the checkpoints'
-    parameter histograms)."""
+    parameter histograms). write=False (a data-parallel run's ranks but the
+    lead) keeps the EMAs and writes and prints nothing."""
 
-    def __init__(self, run_dir: str, filename: str = "metrics.jsonl", tensorboard: bool = False):
-        os.makedirs(run_dir, exist_ok=True)
+    def __init__(self, run_dir: str, filename: str = "metrics.jsonl", tensorboard: bool = False,
+                 write: bool = True):
         self.path = os.path.join(run_dir, filename)
-        self._fh = open(self.path, "a")
-        self.tb = TBEventWriter(run_dir) if tensorboard else None
+        self._fh = self.tb = None
+        if write:
+            os.makedirs(run_dir, exist_ok=True)
+            self._fh = open(self.path, "a")
+            self.tb = TBEventWriter(run_dir) if tensorboard else None
         self.ema_g = EMA()
         self.ema_d = EMA()
         self.t0 = time.time()
 
     def log(self, step: int, payload: dict[str, Any], echo: bool = False) -> None:
+        if self._fh is None:
+            return
         record = {"step": int(step), "t": round(time.time() - self.t0, 3)}
         record.update({k: float(v) if hasattr(v, "__float__") else v for k, v in payload.items()})
         self._fh.write(json.dumps(record) + "\n")
@@ -64,7 +70,8 @@ class MetricsLogger:
             ), flush=True)
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
         if self.tb is not None:
             self.tb.close()
 

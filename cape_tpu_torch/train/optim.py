@@ -128,6 +128,22 @@ class Optimizer:
     def _slots(self) -> tuple[str, ...]:
         return ("trace",) if self.kind == "sgd" else ("mu", "nu")
 
+    def state_tensors(self, params: dict[str, torch.Tensor]) -> list[torch.Tensor]:
+        """Every moment buffer of the players' parameters, in a fixed order,
+        a zero one made where none was written yet (optax's initial value,
+        which the next update takes as it takes no moment): the tensors a
+        data-parallel run broadcasts from its lead, in place."""
+        labels = self.labels(params)
+        out = []
+        for n in sorted(k for k in params if labels[k] != "frozen"):
+            buf = self.buffers.setdefault(n, {})
+            for slot in self._slots():
+                if slot not in buf:
+                    dtype = torch.float32 if slot == "nu" else self.state_dtype
+                    buf[slot] = torch.zeros_like(params[n], dtype=dtype)
+                out.append(buf[slot])
+        return out
+
     def state_arrays(self, params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
         """The state as the JAX package's train state holds it, keyed by its
         keypaths (`.opt_state.inner_states['g'].inner_state[1][0].trace[...]`,

@@ -10,13 +10,14 @@ where JAX writes `stop_gradient`). JAX's XLA merges the forwards of
 d_fake_for_g and d_fake_for_d (the same computation in the forward pass);
 eager PyTorch runs all three discriminator forwards.
 
-In compute_dtype=bfloat16 the parameters and their gradients stay f32 (the
-model casts each parameter where it is used) and every metric keeps the
-dtype JAX's promotion gives it: recon, kl, edge, the GAN terms and loss_d
-are bf16 0-d tensors, reg_g is f32, and loss_g becomes f32 where reg_g
-joins its bf16 sum (0-d tensors of one kind promote to the wider dtype in
-torch, as in JAX). Each mean over a bf16 tensor accumulates in f32 and
-rounds once, as JAX's.
+In compute_dtype=bfloat16 or float16 the parameters and their gradients
+stay f32 (the model casts each parameter where it is used) and every metric
+keeps the dtype JAX's promotion gives it: recon, kl, edge, the GAN terms
+and loss_d are 0-d tensors of the compute dtype, reg_g is f32, and loss_g
+becomes f32 where reg_g joins its half-precision sum (0-d tensors of one
+kind promote to the wider dtype in torch, as in JAX). Each mean over a
+half-precision tensor accumulates in f32 and rounds once, as JAX's. There
+is no loss scaling in float16, as JAX has none.
 """
 
 from __future__ import annotations
@@ -78,12 +79,25 @@ def gan_losses(model: CAPE, cfg: CAPEConfig, ctx: GraphContext, batch: dict, eps
     return loss_g + loss_d, metrics
 
 
-def train_step(state: TrainState, ctx: GraphContext, batch: dict, eps) -> tuple[dict, dict]:
+def train_step(state: TrainState, ctx: GraphContext, batch: dict, eps,
+               reduce=None) -> tuple[dict, dict]:
     """One GAN step: gradients of both players from one backward pass,
     the optimizer's updates added to the parameters in place. Returns
     (metrics as detached 0-d tensors, the updates by parameter path); no
     host sync. The updates are what a comparison with optax reads: at a
-    small lr, p_after - p_before is rounded to a few float32 ulps of p."""
+    small lr, p_after - p_before is rounded to a few float32 ulps of p.
+
+    Under data parallelism `batch` and `eps` are this rank's rows of the
+    global batch, and `reduce` (`parallel.mesh.DataParallel.all_reduce_mean`)
+    maps the gradients by path to their mean over the ranks before the
+    optimizer sees them, so that each player's clip by its global norm and
+    its update are the global batch's: every loss is a mean over the
+    batch's rows, the ranks' shards are equal, and reg_g depends on the
+    parameters alone, so the mean of the ranks' gradients is the global
+    batch's gradient. (No model family normalises over the batch: group
+    norm is per sample, and batch_norm, which would need statistics reduced
+    across the ranks, is used by none.) The metrics stay the rank's own:
+    the caller reduces the ones it reads."""
     model = state.model
     named = dict(model.named_parameters())
     total, metrics = gan_losses(model, model.cfg, ctx, batch, eps)
@@ -92,6 +106,8 @@ def train_step(state: TrainState, ctx: GraphContext, batch: dict, eps) -> tuple[
         n: torch.zeros_like(p) if g is None else g
         for (n, p), g in zip(named.items(), grads)
     }
+    if reduce is not None:
+        grads = reduce(grads)
     updates = state.tx.update(grads)
     with torch.no_grad():
         for n, p in named.items():

@@ -190,6 +190,29 @@ result line):
      a step and 14 per validation batch. The native BVH (csrc/aabb.cpp,
      built with the host's C++ compiler) against the numpy backend on the
      toy pyramid (`bvh_check`).
+ 21. f16-dp (after phase 20): float16 compute and data parallelism, each
+     main path with the counts at 0 just before and read just after.
+     (a) The band-gather kernel's f16 instantiation (rows 2 and 2b)
+     against its plain version at every case of phase 3 and every addend
+     case, within one f16 ulp of max|ref|; the seven batch-32 decode
+     applies and the train step's backward applies timed in f16 beside
+     f32 and bf16, the plain version and the library call (f16 CSR).
+     (b) The flagship in f16 held to tests/data/torch_golden_f16.npz
+     (written by the JAX package: its f16 runs beside its f32 runs): the
+     batch-32 decode (7 launches, all f16) within the golden's derived
+     decode bound, two batch-32 steps (17 + 17 a step, all f16) within
+     the derived metric and update bounds; the decode call and the step
+     timed in f16, bf16 and f32, in turns. (c) Two Gloo ranks on the one
+     card (`chip_smoke.py dp-rank ...`, each with a timeout, killed on
+     it; a rank's failure fails the phase), the flagship in f32 at global
+     batch 64 (32 rows a rank: the kernel route), two steps held to the
+     single-process batch-64 step (metrics 1e-4 relative, updates by
+     hold_updates), 17 + 17 launches a step in each rank; the 2-rank step
+     time and its all-reduce share (two ranks on one card measure no
+     scaling). (d) One rank in an NCCL group of 1 through the DP Trainer
+     (one step, one eval batch). (e) The DP engine over [cuda:0, cuda:0]
+     (32 rows a device) against the single-device engine's 64-row decode,
+     within 1e-5 * max|ref|, 7 launches per device call.
 Every timed record carries `bound_ms`, the least time the card could take
 for the same work (see `bound`). The per-case records go to
 build/chip_smoke_kernels.json. The last two lines are a JSON summary of
@@ -227,6 +250,7 @@ PRESET_CMR = os.path.join(ROOT, "configs", "CAPE_nz18_pose24_clotype8_male.yaml"
 PRESET_DEFAULT = os.path.join(ROOT, "configs", "default_config.yaml")
 GOLDEN_FAMILIES = os.path.join(ROOT, "tests", "data", "torch_golden_families.npz")
 GOLDEN_BF16 = os.path.join(ROOT, "tests", "data", "torch_golden_bf16.npz")
+GOLDEN_F16 = os.path.join(ROOT, "tests", "data", "torch_golden_f16.npz")
 # no SMPL model file: the demo suites export unposed meshes
 NO_SMPL = os.path.join(ROOT, "build", "no_smpl_model")
 GATHER_SOURCE = "cape_tpu_torch/csrc/band_gather.cu"   # rows 2, 2b and 3
@@ -292,7 +316,7 @@ CONTROL_SHARE = 0.05
 # device memory, and per input dtype f32 outside the tensor cores and dense
 # bf16 on them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # the ring phase's autograd main path: [B, P, C] -> F, padded, f32
 RING_MAIN = (32, 6912, 64, 64)
 # the lab's subcommands, as `python -m cape_tpu_torch.tools.perf_lab` takes them
@@ -302,6 +326,11 @@ LAB_RUNS = [["conv"], ["conv", "--padded", "1"], ["layout"], ["fuse"], ["bmapply
 # of ops.cheb, as tests/test_torch_ops.py holds it to JAX's)
 LAB_STEP_K = 4
 SERVE_DECODE_LAUNCHES = {1: 0, 16: 0, 64: 9}
+# phase 21's data-parallel run: ranks on the one card (Gloo), the global
+# batch (32 rows a rank, the kernel route's batch), the seconds a rank may
+# take before it is killed, and the steps each rank times after the two
+# held ones
+DP_RANKS, DP_BATCH, DP_TIMEOUT, DP_TIMED_STEPS = 2, 64, 300, 6
 
 
 def log(*a):
@@ -309,8 +338,8 @@ def log(*a):
 
 
 # the launch counts of the kernel wrappers (cape_tpu_torch.ops.kernels.cheb_kernel)
-COUNTS = ("launches", "bwd_launches", "bf16_launches", "fused1_launches", "fused_launches",
-          "bm_launches", "ring_launches", "ring2_launches")
+COUNTS = ("launches", "bwd_launches", "bf16_launches", "f16_launches", "fused1_launches",
+          "fused_launches", "bm_launches", "ring_launches", "ring2_launches")
 
 
 def zero_counts() -> None:
@@ -371,6 +400,10 @@ def build_phase():
 
 def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def f16_ulp(v: float) -> float:
+    return 2.0 ** (math.floor(math.log2(v)) - 10)
 
 
 def _name(dtype) -> str:
@@ -456,15 +489,19 @@ def _laps(ctx) -> dict:
     return laps
 
 
+# (B, P, C, padded) of the band applies phase 3 holds to the plain version
+GATHER_CASES = ([(32, P, C, True) for P, C in ON_PATH + [PRED] + FAMILY_APPLIES]
+                + [(64, P, C, True) for P, C in ON_PATH + [(6912, 32)]]
+                + [(32, 6890, 64, False), (32, 6912, 35, True)])
+
+
 def kernel_phase(ctx, smi):
     """Kernel against plain at every case; returns the per-case records."""
     from cape_tpu_torch.ops.kernels.cheb_kernel import band_apply, band_apply_plain
     from cape_tpu_torch.tools.perf_lab import time_routes
 
     laps = _laps(ctx)
-    cases = [(32, P, C, True) for P, C in ON_PATH + [PRED] + FAMILY_APPLIES]
-    cases += [(64, P, C, True) for P, C in ON_PATH + [(6912, 32)]]
-    cases += [(32, 6890, 64, False), (32, 6912, 35, True)]
+    cases = GATHER_CASES
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1986,12 +2023,13 @@ def bf16_view(golden, prefix: str) -> dict:
     return view
 
 
-def hold_bf16(name, runs_metrics, dtypes, updates, golden) -> None:
-    """A bf16 run held to JAX's bf16 golden by the golden's derived bounds
-    (tests/make_torch_golden.py bf16_bounds: from bf16's effect in JAX,
-    its bf16 step against its f32 step): every metric of both steps within
-    its bound, relative, and of JAX's dtype; each leaf's step-2 update
-    summary within its bound (hold_updates)."""
+def hold_bf16(name, runs_metrics, dtypes, updates, golden, what="JAX bf16 golden") -> None:
+    """A bf16 (or f16) run held to JAX's golden in that dtype (`what` names
+    it) by the golden's derived bounds (tests/make_torch_golden.py
+    bf16_bounds: from the dtype's effect in JAX, its step in that dtype
+    against its f32 step): every metric of both steps within its bound,
+    relative, and of JAX's dtype; each leaf's step-2 update summary within
+    its bound (hold_updates)."""
     names = [str(k) for k in golden["metric_names"]]
     want = dict(zip(names, (str(d) for d in golden["metric_dtypes"])))
     if dtypes != want:
@@ -1999,12 +2037,12 @@ def hold_bf16(name, runs_metrics, dtypes, updates, golden) -> None:
     for i, m in enumerate(runs_metrics):
         ref, bound = golden["metrics"][i], golden["metric_bound"][i]
         errs = np.array([abs(m[k] - r) / abs(r) for k, r in zip(names, ref)])
-        log(f"{name} step {i + 1} vs JAX bf16 golden: " + " ".join(
+        log(f"{name} step {i + 1} vs {what}: " + " ".join(
             f"{k}={m[k]:.7g}/{r:.7g} ({e:.2e} of {b:.2e})"
             for k, r, e, b in zip(names, ref, errs, bound)))
         if not (errs <= bound).all():
             raise AssertionError(f"{name} step {i + 1}: metrics outside the derived bounds")
-    hold_updates(f"{name} step-2 updates vs JAX bf16 golden", updates,
+    hold_updates(f"{name} step-2 updates vs {what}", updates,
                  [str(k) for k in golden["param_keys"]], golden["update_summary"], {},
                  rel=golden["update_bound"])
 
@@ -2425,6 +2463,433 @@ def artifact_phase(cfg, model, ctx, ctx_plain, smi):
     return rec
 
 
+# ------------------------------------------------------------ phase 21: f16 and DP
+
+
+def f16_gather_phase(ctx, smi):
+    """Phase 21 (a): the band-gather kernel's f16 instantiation (rows 2 and
+    2b) against its plain version at every case of phase 3 and every addend
+    case of the addend phase, within one f16 ulp of max|ref|; the batch-32
+    shapes of serving (ON_PATH) and of the train step's backward
+    (TRAIN_APPLIES, with the addend) timed in f16 beside f32 and bf16, the
+    plain version and one library call (torch.sparse.mm / addmm of the
+    operator as an f16 CSR matrix), in turns. Returns (records, addend
+    records)."""
+    from cape_tpu_torch.ops.kernels.cheb_kernel import band_apply, band_apply_plain
+    from cape_tpu_torch.tools.perf_lab import time_routes
+
+    laps = _laps(ctx)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    records, bwd_records = [], []
+    cases = [(B, P, C, padded, False) for B, P, C, padded in GATHER_CASES]
+    cases += [(32, P, C, True, True) for P, C in [*TRAIN_APPLIES, FAMILY_APPLIES[0]]]
+    for B, P, C, padded, addend in cases:
+        op = laps[P if padded else 6912]
+        rows = P if padded else op.n_rows
+        blocks = {d: op.blocks.to(d).contiguous()
+                  for d in (torch.float32, torch.bfloat16, torch.float16)}
+        x32 = torch.randn((B, P, C), generator=gen, device="cuda")
+        r32 = torch.randn((B, rows, C), generator=gen, device="cuda") if addend else None
+        xs = {d: x32.to(d) for d in blocks}
+        rs = {d: None if r32 is None else r32.to(d) for d in blocks}
+        x, r, b16 = xs[torch.float16], rs[torch.float16], blocks[torch.float16]
+        y = band_apply(x, b16, op.pad_left, rows, addend=r, pack=op.pack)
+        ref = band_apply_plain(x, b16, op.pad_left, rows, r)
+        err, scale = _err(y, ref)
+        limit = f16_ulp(scale)
+        rec = dict(dtype="float16", B=B, P=P, C=C, addend=addend, W=op.pack.width,
+                   layout="padded" if padded else "natural", max_abs_err=err,
+                   max_rel_err=err / scale, limit=limit)
+        log(f"f16 {'addend ' if addend else ''}kernel vs plain x[{B},{P},{C}] W={rec['W']} "
+            f"{rec['layout']}: max_abs_err {err:.3e} rel {err / scale:.3e} (limit {limit:.3e})")
+        if y.dtype != torch.float16 or not err <= limit:
+            raise AssertionError(f"f16 band_apply disagrees with its plain version: {rec}")
+        timed = B == 32 and padded and (P, C) in (TRAIN_APPLIES if addend else ON_PATH)
+        if timed:
+            A, xv = csr_operator(b16, op.pad_left, P, rows), vertex_major(x)
+            routes = {f"{_name(d)}_ms": functools.partial(band_apply, xs[d], blocks[d], op.pad_left,
+                                                          rows, addend=rs[d], pack=op.pack)
+                      for d in blocks}
+            routes["plain_ms"] = lambda: band_apply_plain(x, b16, op.pad_left, rows, r)
+            if addend:
+                rv = vertex_major(r)
+                routes["library_ms"] = lambda: torch.sparse.addmm(rv, A, xv)
+            else:
+                routes["library_ms"] = lambda: torch.sparse.mm(A, xv)
+            rec.update(time_routes(routes, rounds=6, calls=5))
+            rec["ms"] = rec.pop("float16_ms")
+            rec.update(apply_bound(b16, B, P, rows, C, torch.float16, addend=addend))
+            log(f"  time [{smi}]: f16 kernel {rec['ms']:.4f} ms (f32 {rec['float32_ms']:.4f}, "
+                f"bf16 {rec['bfloat16_ms']:.4f}), plain {rec['plain_ms']:.4f}, library "
+                f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+                f"{rate(rec)}")
+        (bwd_records if addend else records).append(rec)
+    return records, bwd_records
+
+
+def f16_flagship_phase(cfg, ctx, model, smi):
+    """Phase 21 (b): the flagship in compute_dtype=float16 on the kernel route,
+    held to tests/data/torch_golden_f16.npz (JAX's f16 runs beside its f32
+    runs), each main path with the counts at 0 just before and read just
+    after: the batch-32 decode of the serve golden's inputs (7 launches, all
+    f16) within the golden's decode bound of max|ref|, and two batch-32 GAN
+    steps (17 + 17 launches a step, all f16) held by the derived bounds
+    (hold_bf16). Then the decode call and the step timed in f16, bf16 and
+    f32, in turns. Returns (forward, backward launches, the times)."""
+    from cape_tpu_torch.apps.inference import InferenceEngine
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.tools.perf_lab import time_routes
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState, train_step
+
+    gold = np.load(GOLDEN_F16)
+    t0 = time.perf_counter()
+    cfgs = {"float16": cfg.replace(compute_dtype="float16", name="chip_smoke_f16"),
+            "bfloat16": cfg.replace(compute_dtype="bfloat16", name="chip_smoke_bf16")}
+    ctxs = {d: build_context(c, device="cuda") for d, c in cfgs.items()}
+    ctxs["float32"], cfgs["float32"] = ctx, cfg
+    models = {d: CAPE(cfgs[d]).init_params(torch.Generator().manual_seed(0), ctxs[d]).to("cuda")
+              for d in ("float16", "bfloat16")}
+    models["float32"] = model
+    check_fingerprint("f16 flagship", models["float16"], gold)
+    log(f"f16 and bf16 graph contexts and models built in {time.perf_counter() - t0:.2f} s")
+
+    # ---- the decode main path: every count at 0 just before, read just after
+    engine = InferenceEngine(models["float16"], ctxs["float16"], cfg.batch_size)
+    zero_counts()
+    y, y2 = engine.encode_only_condition(gold["decode:pose"], gold["decode:clo"])
+    z_total = np.concatenate([gold["decode:z"], y, y2], -1)
+    disp = engine.decode(z_total, y, y2)
+    decode_counts = read_counts()
+    log(f"f16 decode: device calls {engine.calls}; counts {json.dumps(decode_counts)}")
+    if (decode_counts["launches"] != 7 or decode_counts["f16_launches"] != 7
+            or not only(decode_counts, "launches", "f16_launches")):
+        raise AssertionError(f"f16 decode: counts {decode_counts}, expected 7 f16 launches")
+    check_mesh("f16 decode", disp, 32)
+    ref = gold["decode:disp"]
+    held_to("f16 kernel route vs JAX f16 golden (batch-32 decode)", disp[: len(ref)], ref,
+            rel=float(gold["decode:bound"]))
+    f32_ref = gold["decode:f32_disp"]
+    log(f"f16 decode against JAX's f32 decode (f16's effect): "
+        f"{np.abs(disp[: len(ref)] - f32_ref).max() / np.abs(f32_ref).max():.3e} of max|ref|")
+
+    # ---- the train main path
+    golden = bf16_view(gold, "b32")
+    batches, spe = golden_batches(golden, ctxs["float16"].perm0, int(golden["batch"]))
+    eps = torch.from_numpy(golden["eps"]).cuda()
+    dtypes = {}
+    zero_counts()
+    state, metrics, updates, counts = gan_steps(cfgs["float16"], ctxs["float16"], batches, eps,
+                                                spe, golden, dtypes)
+    total = read_counts()
+    log(f"f16 steps: band_apply launches (forward, backward) per step {counts}; all counts "
+        f"{json.dumps(total)}")
+    if (counts != [(FWD_PER_STEP, BWD_PER_STEP)] * 2
+            or total["f16_launches"] != 2 * (FWD_PER_STEP + BWD_PER_STEP)
+            or not only(total, "launches", "bwd_launches", "f16_launches")):
+        raise AssertionError(f"f16 steps: launches {counts} ({total}), expected 17 + 17 a "
+                             "step, all f16")
+    hold_bf16("f16 b32 kernel", metrics, dtypes, updates, golden, what="JAX f16 golden")
+
+    # ---- times: the decode call and the train step in each dtype, in turns
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    zt, ty, ty2 = dev(z_total), dev(y), dev(y2)
+    states = {"float16": state}
+    for d in ("bfloat16", "float32"):
+        m = CAPE(cfgs[d]).init_params(torch.Generator().manual_seed(0), ctxs[d]).to("cuda")
+        states[d] = TrainState(m, Optimizer(cfgs[d], spe))
+    with torch.inference_mode():
+        decode_ms = time_routes({d: functools.partial(models[d].decode, ctxs[d], zt, ty, ty2)
+                                 for d in ("float16", "bfloat16", "float32")})
+    step_ms = time_routes({d: functools.partial(train_step, states[d], ctxs[d], batches[0],
+                                                eps[0])
+                           for d in ("float16", "bfloat16", "float32")}, rounds=6, calls=2)
+    for d in decode_ms:
+        log(f"flagship batch 32, kernel route, {d} [{smi}]: decode call {decode_ms[d]:.3f} ms, "
+            f"train step {step_ms[d]:.3f} ms (CUDA events, dtypes in turns)")
+    fwd = decode_counts["launches"] + total["launches"]
+    return fwd, total["bwd_launches"], {"decode_ms": decode_ms, "step_ms": step_ms}
+
+
+def dp_inputs(cfg, perm):
+    """Phase 21 (c)'s two global batches of DP_BATCH rows (the train golden's
+    data recipe: synthetic n_train=512 from cfg.seed, G and D streams seeded
+    seed and seed + 1) and their eps [2, DP_BATCH, nz] (numpy default_rng(5)),
+    as numpy."""
+    from cape_tpu_torch.data.loader import BatchStream
+    from cape_tpu_torch.data.synthetic import synthetic_bodydata
+
+    data = synthetic_bodydata(n_train=512, n_test=64, num_verts=6890, seed=cfg.seed)
+    n = len(data.disp_train)
+    sg, sd = BatchStream(n, DP_BATCH, cfg.seed), BatchStream(n, DP_BATCH, cfg.seed + 1)
+    disp = data.disp_train[:, perm]
+    batches = []
+    for _ in range(2):
+        ig, idd = sg.next_indices(), sd.next_indices()
+        batches.append({"disp_g": disp[ig], "pose_g": data.pose_train[ig],
+                        "clo_g": data.clo_train[ig], "disp_d": disp[idd],
+                        "pose_d": data.pose_train[idd], "clo_d": data.clo_train[idd]})
+    eps = np.random.default_rng(5).standard_normal((2, DP_BATCH, cfg.nz)).astype(np.float32)
+    return batches, eps, n // DP_BATCH
+
+
+def dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
+    """One rank of phase 21 (c), started as `chip_smoke.py dp-rank RANK N PORT
+    DIR`: the flagship (f32, seed-0 parameters broadcast from rank 0) on the
+    one card in a Gloo group, its rows of the two global steps of
+    DIR/inputs.npz with the gradients averaged, the counts at 0 just before
+    and read just after; then DP_TIMED_STEPS more steps, each timed by the
+    host clock around a synchronised step, with the all-reduce's share (the
+    reducer synchronises before and after it). Writes DIR/rank<RANK>.npz."""
+    import torch.distributed as dist
+
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.core.config import load_config
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.parallel import multihost
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    multihost.initialize(f"localhost:{port}", n, rank, backend="gloo")
+    try:
+        mh = multihost.MultiHostDataParallel(torch.device("cuda", 0))
+        cfg = load_config(PRESET, batch_size=DP_BATCH, compute_dtype="float32",
+                          name="chip_smoke_dp", data_parallel=n)
+        ctx = build_context(cfg, device="cuda")
+        model = mh.replicate(CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx)
+                             .to("cuda"))
+        lo, hi = mh.local_rows(DP_BATCH)
+        with np.load(os.path.join(workdir, "inputs.npz")) as f:
+            eps = torch.from_numpy(f["eps"][:, lo:hi]).cuda()
+            batches = [{k.split("/")[1]: torch.from_numpy(np.ascontiguousarray(f[k][lo:hi])).cuda()
+                        for k in f.files if k.startswith(f"{i}/")} for i in range(2)]
+            spe = int(f["steps_per_epoch"])
+        reduce_s = [0.0]
+
+        def reduce(grads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mh.all_reduce_mean(grads)
+            torch.cuda.synchronize()
+            reduce_s[0] += time.perf_counter() - t0
+            return out
+
+        state = TrainState(model, Optimizer(cfg, spe))
+        zero_counts()
+        metrics = []
+        for batch, e in zip(batches, eps):
+            m, updates = train_step(state, ctx, batch, e, reduce=reduce)
+            metrics.append([float(v) for v in mh.all_reduce_mean(m).values()])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        names = list(m)
+        step_s = []
+        for i in range(DP_TIMED_STEPS):
+            reduce_s[0] = 0.0
+            mh.barrier()
+            t0 = time.perf_counter()
+            train_step(state, ctx, batches[i % 2], eps[i % 2], reduce=reduce)
+            torch.cuda.synchronize()
+            step_s.append((time.perf_counter() - t0, reduce_s[0]))
+        arrays = {f"update/{k}": v.cpu().numpy() for k, v in updates.items()} if mh.lead else {}
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), metrics=np.array(metrics),
+                 metric_names=np.array(names), counts=json.dumps(counts),
+                 step_s=np.array(step_s), **arrays)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_train_phase(cfg, ctx, smi):
+    """Phase 21 (c): DP_RANKS Gloo ranks on the one card (`dp_rank`), the
+    flagship in f32 at global batch DP_BATCH (32 rows a rank: the kernel
+    route), two steps, held to the single-process batch-64 step from the
+    same parameters, batches and eps (metrics within 1e-4 relative, every
+    leaf's step-2 update by hold_updates); each rank's launches 17 + 17 a
+    step. Every rank must exit 0 within DP_TIMEOUT seconds, or is killed and
+    fails the phase. Logs the 2-rank step time and its all-reduce share (two
+    ranks share one card: no scaling is measured). Returns (forward,
+    backward launches of the ranks, the records)."""
+    import socket
+    import sys
+
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState, train_step
+
+    t_phase = time.perf_counter()
+    batches, eps, spe = dp_inputs(cfg, ctx.perm0)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=os.path.join(ROOT, "build"))
+    try:
+        np.savez(os.path.join(workdir, "inputs.npz"), eps=eps, steps_per_epoch=spe,
+                 **{f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "dp-rank",
+                                   str(r), str(DP_RANKS), str(port), workdir], cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(DP_RANKS)]
+        deadline = time.monotonic() + DP_TIMEOUT
+        try:
+            # the single-process reference at the same global batch, meanwhile
+            ref_cfg = cfg.replace(batch_size=DP_BATCH)
+            model = CAPE(ref_cfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
+            state = TrainState(model, Optimizer(ref_cfg, spe))
+            dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            ref_metrics = []
+            for batch, e in zip(batches, eps):
+                m, ref_updates = train_step(state, ctx, {k: dev(v) for k, v in batch.items()},
+                                            dev(e))
+                ref_metrics.append({k: float(v) for k, v in m.items()})
+            ref_updates = {k: v.cpu().numpy() for k, v in ref_updates.items()}
+            outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0] for p in procs]
+        finally:
+            for p in procs:   # no rank outlives the phase
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"DP rank {r} exited {p.returncode}:\n{out[-4000:]}")
+        ranks = [dict(np.load(os.path.join(workdir, f"rank{r}.npz"))) for r in range(DP_RANKS)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    names = [str(k) for k in ranks[0]["metric_names"]]
+    fwd = bwd = 0
+    for r, rec in enumerate(ranks):
+        c = json.loads(str(rec["counts"]))
+        log(f"DP rank {r} of {DP_RANKS} (Gloo, one card), 2 steps at {DP_BATCH // DP_RANKS} rows: "
+            f"counts {json.dumps(c)}")
+        if ((c["launches"], c["bwd_launches"]) != (2 * FWD_PER_STEP, 2 * BWD_PER_STEP)
+                or not only(c, "launches", "bwd_launches")):
+            raise AssertionError(f"DP rank {r}: counts {c}, expected 17 + 17 a step")
+        fwd += c["launches"]
+        bwd += c["bwd_launches"]
+        if not np.array_equal(rec["metrics"], ranks[0]["metrics"]):
+            raise AssertionError("DP ranks report different reduced metrics")
+    for i in range(2):
+        held_metrics(f"DP {DP_RANKS} ranks step {i + 1} vs the single-process batch-"
+                     f"{DP_BATCH} step", dict(zip(names, ranks[0]["metrics"][i])),
+                     ref_metrics[i])
+    got = {k[len("update/"):]: v for k, v in ranks[0].items() if k.startswith("update/")}
+    keys = sorted(ref_updates)
+    summary = np.stack([[u.sum(), np.square(u).sum(), np.abs(u).max()]
+                        for u in (ref_updates[k].astype(np.float64) for k in keys)])
+    hold_updates(f"DP {DP_RANKS} ranks step-2 updates vs the single-process step", got, keys,
+                 summary, ref_updates)
+    steps = np.concatenate([rec["step_s"] for rec in ranks])
+    step_ms = 1e3 * float(np.median(steps[:, 0]))
+    share = float(np.median(steps[:, 1] / steps[:, 0]))
+    log(f"DP {DP_RANKS}-rank step at global batch {DP_BATCH} [{smi}]: {step_ms:.3f} ms (host "
+        f"clock around a synchronised step, median of {len(steps)} rank-steps), gradient "
+        f"all-reduce share {share:.1%} (Gloo through the host); two ranks share one card, so "
+        "this measures no scaling")
+    rec = {"step_ms": step_ms, "allreduce_share": share, "launches": [fwd, bwd],
+           "seconds": time.perf_counter() - t_phase}
+    log(f"DP train phase: {rec['seconds']:.2f} s")
+    return fwd, bwd, rec
+
+
+def nccl_phase(cfg, ctx):
+    """Phase 21 (d): one rank in an NCCL group of 1 through the DP Trainer
+    (synthetic n_train=64: one step of batch 32 and one eval batch), counts
+    at 0 just before and read just after: NCCL initialises, the parameter
+    broadcast, the gradient all-reduce and the eval's row gather run. Returns
+    (forward, backward launches)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cape_tpu_torch.data.synthetic import synthetic_bodydata
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.parallel import multihost
+    from cape_tpu_torch.train.loop import Trainer
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    data = synthetic_bodydata(n_train=64, n_test=32, num_verts=6890, seed=cfg.seed)
+    tcfg = cfg.replace(name="chip_smoke_nccl", num_epochs=1, tensorboard=False)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_nccl_", dir=os.path.join(ROOT, "build"))
+    multihost.initialize(f"localhost:{port}", 1, 0, backend="nccl")
+    try:
+        model = CAPE(tcfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
+        zero_counts()
+        trainer = Trainer(tcfg, model, ctx, data, workdir=workdir)
+        val, _ = trainer.fit()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        backend = dist.get_backend(trainer.dp.group)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"NCCL at world size 1: backend {backend}, {trainer.num_steps} step to step "
+        f"{trainer.state.step}, val recon {val}; counts {json.dumps(counts)}")
+    if (backend != "nccl" or trainer.dp.world_size != 1 or trainer.state.step != 1
+            or not all(math.isfinite(v) for v in val)):
+        raise AssertionError("NCCL at world size 1: the DP Trainer did not run")
+    if ((counts["launches"], counts["bwd_launches"]) != (FWD_PER_STEP + FWD_PER_EVAL,
+                                                         BWD_PER_STEP)
+            or not only(counts, "launches", "bwd_launches")):
+        raise AssertionError(f"NCCL at world size 1: counts {counts}")
+    return counts["launches"], counts["bwd_launches"]
+
+
+def dp_engine_phase(model, ctx):
+    """Phase 21 (e): the DP engine over devices [cuda:0, cuda:0] (32 rows a
+    device, padded calls of 64 split in device order) against the single
+    device engine at batch 64, on 64 rows of decode inputs (numpy
+    default_rng(6)), within 1e-5 * max|ref| (phase 15's limit); counts at 0
+    just before and read just after: 2 decode device calls of 7 launches.
+    Returns the launches."""
+    from cape_tpu_torch.apps.inference import InferenceEngine
+    from cape_tpu_torch.parallel.mesh import DataParallel
+
+    cfg = model.cfg
+    rng = np.random.default_rng(6)
+    z = rng.standard_normal((64, cfg.nz)).astype(np.float32)
+    pose = (0.5 * rng.standard_normal((64, cfg.cond_dim))).astype(np.float32)
+    clo = np.eye(cfg.cond2_dim, dtype=np.float32)[rng.integers(0, cfg.cond2_dim, 64)]
+    single = InferenceEngine(model, ctx, 64)
+    y, y2 = single.encode_only_condition(pose, clo)
+    zt = np.concatenate([z, y, y2], -1)
+    ref = single.decode(zt, y, y2)
+    engine = InferenceEngine(model, ctx, 32, dp=DataParallel(devices=["cuda:0", "cuda:0"]))
+    zero_counts()
+    disp = engine.decode(zt, y, y2)
+    counts = read_counts()
+    log(f"DP engine over [cuda:0, cuda:0]: device calls {engine.calls}; counts "
+        f"{json.dumps(counts)}")
+    if engine.calls["decode"] != 2 or counts["launches"] != 14 or not only(counts, "launches"):
+        raise AssertionError(f"DP engine: calls {engine.calls}, counts {counts}")
+    check_mesh("DP engine decode", disp, 64)
+    held_to("DP engine (2 x 32 rows) vs the single-device engine (64 rows)", disp, ref, rel=1e-5)
+    return counts["launches"]
+
+
+def f16_dp_phase(cfg, ctx, model, smi):
+    """Phase 21: float16 compute and data parallelism (f16_gather_phase,
+    f16_flagship_phase, dp_train_phase, nccl_phase, dp_engine_phase).
+    Returns its records and its launches: f16 forward and backward, f32
+    forward and backward."""
+    t_phase = time.perf_counter()
+    f16_records, f16_bwd_records = f16_gather_phase(ctx, smi)
+    f16_fwd, f16_bwd, f16_times = f16_flagship_phase(cfg, ctx, model, smi)
+    dp_fwd, dp_bwd, dp_rec = dp_train_phase(cfg, ctx, smi)
+    nccl_fwd, nccl_bwd = nccl_phase(cfg, ctx)
+    engine_fwd = dp_engine_phase(model, ctx)
+    rec = {"f16_band_apply": f16_records, "f16_band_apply_bwd": f16_bwd_records,
+           "f16_flagship": f16_times, "dp_train": dp_rec,
+           "nccl_launches": [nccl_fwd, nccl_bwd], "dp_engine_launches": engine_fwd,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"f16-dp phase: {rec['seconds']:.2f} s")
+    return rec, (f16_fwd, f16_bwd), (dp_fwd + nccl_fwd + engine_fwd, dp_bwd + nccl_bwd)
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_phase()
@@ -2538,6 +3003,7 @@ def main():
     log(f"train step times [{smi}]: " + json.dumps(train_times))
     lab_lines, lab_counts = lab_phase(smi)
     rest_rec, rest_fwd, rest_bwd = lab_rest_phase(model, ctx, smi)
+    f16_dp_rec, (f16_fwd, f16_bwd), (dp_fwd, dp_bwd) = f16_dp_phase(cfg, ctx, model, smi)
     os.makedirs(os.path.dirname(RECORDS), exist_ok=True)
     with open(RECORDS, "w") as f:
         json.dump({"device": smi, "band_apply": records, "band_apply_bwd": bwd_records,
@@ -2547,7 +3013,7 @@ def main():
                    "microbatch_latency": mb_times, "demo_mode_seconds": demo_seconds,
                    "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times},
                    "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records},
-                   "artifact": artifact_rec, "lab_rest": rest_rec}, f)
+                   "artifact": artifact_rec, "lab_rest": rest_rec, "f16_dp": f16_dp_rec}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -2556,9 +3022,9 @@ def main():
         "source": GATHER_SOURCE,
         "replaces": REPLACES,
         # the forward launches of the serve, train-mode, microbatch, demo,
-        # families, train-prod and lab-rest main paths
+        # families, train-prod, lab-rest and (f32) DP main paths
         "launches": (launches + run_fwd + mb_launches + demo_launches + fam_fwd + prod_fwd
-                     + rest_fwd),
+                     + rest_fwd + dp_fwd),
         # worst f32 error over the batch-32 shapes of serving and training;
         # times and bounds summed over the seven band applies of one
         # batch-32 decode
@@ -2573,7 +3039,7 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES_BWD,
-        "launches": run_bwd + fam_bwd + prod_bwd + rest_bwd,
+        "launches": run_bwd + fam_bwd + prod_bwd + rest_bwd + dp_bwd,
         # worst f32 error of the addend variant over the train steps'
         # shapes (the CMR output conv's included); times and bounds summed
         # over the 17 backward applies of one flagship step
@@ -2582,6 +3048,25 @@ def main():
         "plain_ms": per_step(bwd_step, "plain_ms"),
         **summed_bound(bwd_step, lambda r: TRAIN_APPLIES[(r["P"], r["C"])]),
         "library_ms": per_step(bwd_step, "library_ms"),
+    }]
+    # rows 2 and 2b in f16 (phase 21): launches from its f16 main paths;
+    # the worst error over every f16 case; times and bounds as the f32 rows'
+    f16_fwd_t = [r for r in f16_dp_rec["f16_band_apply"] if "ms" in r]
+    f16_bwd_all = f16_dp_rec["f16_band_apply_bwd"]
+    f16_bwd_t = [r for r in f16_bwd_all if "ms" in r]
+    summary += [{
+        "name": "band_apply (f16)", "route": "cuda", "source": GATHER_SOURCE,
+        "replaces": REPLACES, "launches": f16_fwd,
+        "max_abs_err": max(r["max_abs_err"] for r in f16_dp_rec["f16_band_apply"]),
+        "ms": sum(r["ms"] for r in f16_fwd_t), "plain_ms": sum(r["plain_ms"] for r in f16_fwd_t),
+        **summed_bound(f16_fwd_t), "library_ms": sum(r["library_ms"] for r in f16_fwd_t),
+    }, {
+        "name": "band_apply_bwd (f16)", "route": "cuda", "source": GATHER_SOURCE,
+        "replaces": REPLACES_BWD, "launches": f16_bwd,
+        "max_abs_err": max(r["max_abs_err"] for r in f16_bwd_all),
+        "ms": per_step(f16_bwd_t, "ms"), "plain_ms": per_step(f16_bwd_t, "plain_ms"),
+        **summed_bound(f16_bwd_t, lambda r: TRAIN_APPLIES[(r["P"], r["C"])]),
+        "library_ms": per_step(f16_bwd_t, "library_ms"),
     }]
     # rows 1, 4, 3, 5 and 6: launches from the lab (rows 1, 3, 4) and from
     # the ring phase's main path (rows 5, 6); the worst f32 error over their
@@ -2635,4 +3120,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["dp-rank"]:   # one rank of phase 21's data-parallel run
+        dp_rank(*map(int, sys.argv[2:5]), sys.argv[5])
+    else:
+        main()

@@ -1,7 +1,8 @@
 """Write the golden files `chip_smoke.py` holds the PyTorch port to, from the
 JAX package on the CPU, for parameters made by the port.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_golden.py [serve] [train] [demo] [families] [bf16]
+    JAX_PLATFORMS=cpu python tests/make_torch_golden.py [serve] [train] [demo] [families] [bf16] \
+        [f16]
 
 Serve and train use the flagship preset, demo the nz18 release preset, each
 at full width, f32, on JAX's plain banded
@@ -74,6 +75,15 @@ state) on the same inputs; from the two, the bounds a port's bf16 run is
 held by (`bf16_bounds`: twice bf16's effect in JAX itself, per metric and
 per player's leaves, at least one bf16 ulp of a metric and 1e-3 of a
 leaf's max|update|). No whole update is kept.
+
+f16 -> tests/data/torch_golden_f16.npz: the flagship in
+compute_dtype=float16 (f32 parameters) at batch 32, in the bf16 golden's
+form, beside JAX's f32 runs on the same inputs: the decode of the serve
+golden's inputs (the first 8 meshes of both, keys "decode:...", and
+`decode_bound`, relative to max|ref|: twice f16's effect on the decode in
+JAX itself, at least one f16 ulp of max|ref|), and two GAN steps by the
+bf16 golden's recipe (keys "b32:...", bounds from `bf16_bounds` at f16's
+ulp).
 """
 
 from __future__ import annotations
@@ -91,6 +101,7 @@ PRESET_NZ18 = os.path.join(ROOT, "configs", "CAPE-affineconv_nz18_pose24_clotype
 OUT_DEMO = os.path.join(ROOT, "tests", "data", "torch_golden_demo.npz")
 OUT_FAMILIES = os.path.join(ROOT, "tests", "data", "torch_golden_families.npz")
 OUT_BF16 = os.path.join(ROOT, "tests", "data", "torch_golden_bf16.npz")
+OUT_F16 = os.path.join(ROOT, "tests", "data", "torch_golden_f16.npz")
 # the bf16 golden's configurations: key prefix -> (batch, overrides of the
 # bf16 run); each is held to the f32 run at its batch
 BF16_RUNS = {"b32": (32, {}), "b16": (16, {}), "opt": (32, {"opt_state_dtype": "bfloat16"})}
@@ -163,10 +174,16 @@ def update_spread(ref: dict, other: dict, whole_max: int) -> float:
     return float(worst)
 
 
-def bf16_ulp_rel(v: np.ndarray) -> np.ndarray:
-    """One bf16 ulp at |v|, relative to |v| (2^-8 to 2^-7)."""
+# the explicit mantissa bits of each half-precision compute dtype: one ulp
+# at |v| is 2^(floor(log2 |v|) - bits)
+MANTISSA_BITS = {"bfloat16": 7, "float16": 10}
+
+
+def bf16_ulp_rel(v: np.ndarray, dtype: str = "bfloat16") -> np.ndarray:
+    """One ulp of `dtype` at |v|, relative to |v| (bf16: 2^-8 to 2^-7; f16:
+    2^-11 to 2^-10)."""
     a = np.abs(np.asarray(v, np.float64))
-    return 2.0 ** (np.floor(np.log2(a)) - 7) / a
+    return 2.0 ** (np.floor(np.log2(a)) - MANTISSA_BITS[dtype]) / a
 
 
 def summary_spread(ref: np.ndarray, other: np.ndarray, sizes: np.ndarray) -> np.ndarray:
@@ -181,14 +198,16 @@ def summary_spread(ref: np.ndarray, other: np.ndarray, sizes: np.ndarray) -> np.
                    np.abs(o_sum - r_sum) / np.sqrt(sizes * r_sq)], axis=0)
 
 
-def bf16_bounds(metrics, f32_metrics, summary, f32_summary, keys, sizes):
-    """The bounds a bf16 step is held to JAX's bf16 step by, derived from
-    the size of bf16's effect in JAX itself: its bf16 step against its f32
-    step on the same inputs. Two bf16 implementations each round
+def bf16_bounds(metrics, f32_metrics, summary, f32_summary, keys, sizes, dtype="bfloat16"):
+    """The bounds a half-precision step (compute `dtype`, bfloat16 or
+    float16) is held to JAX's step in that dtype by, derived from the size
+    of the dtype's effect in JAX itself: its step in `dtype` against its
+    f32 step on the same inputs. Two implementations each round
     differently from the f32 result, so their distance can reach twice that
     effect. Per metric, relative: the larger of twice the metric's effect
-    and one bf16 ulp of its value (every metric is a sum of bf16 terms, and
-    the last rounding alone can part two implementations by an ulp). Per
+    and one ulp of `dtype` at its value (every metric is a sum of terms in
+    that dtype, and the last rounding alone can part two implementations by
+    an ulp). Per
     leaf of the step-2 update, relative to its max|update| by
     summary_spread: twice the largest effect on any leaf of the same player
     (G: generator and condition nets; D: discriminator), and at least
@@ -198,7 +217,7 @@ def bf16_bounds(metrics, f32_metrics, summary, f32_summary, keys, sizes):
     player's leaves share its largest. Returns (metric bounds [STEPS, M],
     update bounds [L])."""
     effect = np.abs(metrics - f32_metrics) / np.abs(f32_metrics)
-    metric_bound = np.maximum(2 * effect, bf16_ulp_rel(metrics))
+    metric_bound = np.maximum(2 * effect, bf16_ulp_rel(metrics, dtype))
     spread = summary_spread(f32_summary, summary, np.asarray(sizes))
     is_d = np.array([k.startswith("discriminator.") for k in keys])
     update_bound = np.where(is_d, spread[is_d].max(initial=0), spread[~is_d].max(initial=0))
@@ -403,64 +422,121 @@ def make_families():
     print(f"wrote {OUT_FAMILIES}: {os.path.getsize(OUT_FAMILIES)} bytes")
 
 
+class HalfRuns:
+    """JAX's flagship runs from the port's seed-0 parameters, for the
+    half-precision goldens: `steps` runs two GAN steps (train_steps) in a
+    compute dtype, keeping what bf16_bounds reads; the contexts are built
+    once per dtype."""
+
+    def __init__(self):
+        import jax
+        import torch
+
+        from cape_tpu_torch.apps.main import build_context
+        from cape_tpu_torch.core.bridge import to_jax_params
+        from cape_tpu_torch.core.config import load_config
+        from cape_tpu_torch.models.cape import CAPE
+
+        cfg = load_config(PRESET)
+        model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), build_context(cfg))
+        self.cfg = cfg
+        self.params = jax.tree_util.tree_map(jax.numpy.asarray, to_jax_params(model))
+        self.keys, sums = fingerprint(model.state_dict())
+        self.sizes = np.array([model.state_dict()[k].numel() for k in self.keys])
+        self.head = dict(param_keys=np.array(self.keys), param_sums=sums, leaf_sizes=self.sizes,
+                         metric_names=np.array(METRICS))
+        self.ctxs = {}
+
+    def jcfg(self, dtype, **overrides):
+        from cape_tpu.apps.main import build_context as jax_build_context
+        from cape_tpu.core.config import load_config as jax_load_config
+
+        jcfg = jax_load_config(PRESET, use_pallas=False, compute_dtype=dtype, **overrides)
+        if dtype not in self.ctxs:
+            self.ctxs[dtype] = jax_build_context(jcfg)
+        return jcfg
+
+    def steps(self, batch_size, dtype, overrides) -> dict:
+        jcfg = self.jcfg(dtype, batch_size=batch_size, **overrides)
+        dtypes = {}
+        metrics, eps, deltas, spe = train_steps(self.params, jcfg, self.ctxs[dtype], batch_size,
+                                                dtypes)
+        summary = np.stack([update_summary(deltas[k]) for k in self.keys])
+        return dict(metrics=metrics, eps=eps, summary=summary, spe=spe, seed=jcfg.seed,
+                    dtypes=np.array([dtypes[k] for k in METRICS]))
+
+    def step_record(self, half: dict, f32: dict, dtype: str, batch_size: int,
+                    opt_state_dtype: str = "float32") -> dict:
+        """The arrays a half-precision golden keeps of a run beside its f32
+        run, with the bounds derived from the two."""
+        metric_bound, update_bound = bf16_bounds(half["metrics"], f32["metrics"],
+                                                 half["summary"], f32["summary"], self.keys,
+                                                 self.sizes, dtype)
+        print(f"{dtype} at batch {batch_size}: metric dtypes "
+              f"{dict(zip(METRICS, half['dtypes']))}; metric bounds "
+              f"{np.round(metric_bound.max(0), 5).tolist()}; update bounds G "
+              f"{update_bound[0]:.4g}, D "
+              f"{update_bound[self.keys.index('discriminator.pred.w')]:.4g}", flush=True)
+        return dict(
+            batch=batch_size, seed=half["seed"], n_train=N_TRAIN, n_test=N_TEST,
+            steps_per_epoch=half["spe"], eps=half["eps"], opt_state_dtype=opt_state_dtype,
+            metrics=half["metrics"], metric_dtypes=half["dtypes"],
+            update_summary=half["summary"], f32_metrics=f32["metrics"],
+            f32_update_summary=f32["summary"], metric_bound=metric_bound,
+            update_bound=update_bound,
+        )
+
+
 def make_bf16():
     """bf16 compute (and bf16 optimizer state) on the flagship, two steps
     each, beside JAX's f32 steps on the same inputs (see the module
     docstring)."""
-    import jax
-    import torch
-
-    from cape_tpu.apps.main import build_context as jax_build_context
-    from cape_tpu.core.config import load_config as jax_load_config
-    from cape_tpu_torch.apps.main import build_context
-    from cape_tpu_torch.core.bridge import to_jax_params
-    from cape_tpu_torch.core.config import load_config
-    from cape_tpu_torch.models.cape import CAPE
-
-    cfg = load_config(PRESET)
-    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), build_context(cfg))
-    params = jax.tree_util.tree_map(jax.numpy.asarray, to_jax_params(model))
-    keys, sums = fingerprint(model.state_dict())
-    sizes = np.array([model.state_dict()[k].numel() for k in keys])
-    out = dict(param_keys=np.array(keys), param_sums=sums, leaf_sizes=sizes,
-               metric_names=np.array(METRICS))
-    ctxs, f32_runs = {}, {}
-
-    def run(batch_size, dtype, overrides):
-        jcfg = jax_load_config(PRESET, use_pallas=False, batch_size=batch_size,
-                               compute_dtype=dtype, **overrides)
-        if dtype not in ctxs:
-            ctxs[dtype] = jax_build_context(jcfg)
-        dtypes = {}
-        metrics, eps, deltas, spe = train_steps(params, jcfg, ctxs[dtype], batch_size, dtypes)
-        summary = np.stack([update_summary(deltas[k]) for k in keys])
-        return dict(metrics=metrics, eps=eps, summary=summary, spe=spe, seed=jcfg.seed,
-                    dtypes=np.array([dtypes[k] for k in METRICS]))
-
+    runs = HalfRuns()
+    out, f32_runs = dict(runs.head), {}
     for prefix, (batch_size, overrides) in BF16_RUNS.items():
         print(f"{prefix}: batch {batch_size}, bfloat16 {overrides}", flush=True)
-        bf = run(batch_size, "bfloat16", overrides)
+        bf = runs.steps(batch_size, "bfloat16", overrides)
         if batch_size not in f32_runs:
             print(f"{prefix}: batch {batch_size}, float32", flush=True)
-            f32_runs[batch_size] = run(batch_size, "float32", {})
-        f32 = f32_runs[batch_size]
-        metric_bound, update_bound = bf16_bounds(bf["metrics"], f32["metrics"], bf["summary"],
-                                                 f32["summary"], keys, sizes)
-        record = dict(
-            batch=batch_size, seed=bf["seed"], n_train=N_TRAIN, n_test=N_TEST,
-            steps_per_epoch=bf["spe"], eps=bf["eps"], opt_state_dtype=overrides.get(
-                "opt_state_dtype", "float32"),
-            metrics=bf["metrics"], metric_dtypes=bf["dtypes"], update_summary=bf["summary"],
-            f32_metrics=f32["metrics"], f32_update_summary=f32["summary"],
-            metric_bound=metric_bound, update_bound=update_bound,
-        )
+            f32_runs[batch_size] = runs.steps(batch_size, "float32", {})
+        record = runs.step_record(bf, f32_runs[batch_size], "bfloat16", batch_size,
+                                  overrides.get("opt_state_dtype", "float32"))
         out.update({f"{prefix}:{k}": v for k, v in record.items()})
-        print(f"{prefix}: metric dtypes {dict(zip(METRICS, bf['dtypes']))}; metric bounds "
-              f"{np.round(metric_bound.max(0), 5).tolist()}; update bounds G "
-              f"{update_bound[0]:.4g}, D {update_bound[keys.index('discriminator.pred.w')]:.4g}",
-              flush=True)
     np.savez_compressed(OUT_BF16, **out)
     print(f"wrote {OUT_BF16}: {os.path.getsize(OUT_BF16)} bytes")
+
+
+def make_f16():
+    """f16 compute on the flagship at batch 32: the decode of the serve
+    golden's inputs and two GAN steps, each beside JAX's f32 run on the same
+    inputs (see the module docstring)."""
+    from cape_tpu.apps.inference import InferenceEngine as JaxEngine
+    from cape_tpu.models.cape import CAPE as JaxCAPE
+
+    runs = HalfRuns()
+    out = dict(runs.head)
+    z, pose, clo = golden_inputs(runs.cfg)
+    disp = {}
+    for dtype in ("float16", "float32"):
+        jcfg = runs.jcfg(dtype, batch_size=B)
+        engine = JaxEngine(JaxCAPE(jcfg), runs.ctxs[dtype], runs.params, batch_size=B)
+        y, y2 = engine.encode_only_condition(pose, clo)
+        disp[dtype] = engine.decode(np.concatenate([z, y, y2], -1), y, y2)[:KEEP]
+        disp[dtype] = disp[dtype].astype(np.float32)
+        print(f"decode {dtype}: finite {np.isfinite(disp[dtype]).all()}, max|.| "
+              f"{np.abs(disp[dtype]).max():.6g}", flush=True)
+    scale = np.abs(disp["float32"]).max()
+    effect = np.abs(disp["float16"] - disp["float32"]).max() / scale
+    decode_bound = max(2 * effect, float(bf16_ulp_rel(np.abs(disp["float16"]).max(), "float16")))
+    out.update({"decode:z": z, "decode:pose": pose, "decode:clo": clo,
+                "decode:disp": disp["float16"], "decode:f32_disp": disp["float32"],
+                "decode:bound": decode_bound})
+    print(f"decode: f16's effect {effect:.4g} of max|f32|, bound {decode_bound:.4g}", flush=True)
+    half = runs.steps(B, "float16", {})
+    f32 = runs.steps(B, "float32", {})
+    out.update({f"b32:{k}": v for k, v in runs.step_record(half, f32, "float16", B).items()})
+    np.savez_compressed(OUT_F16, **out)
+    print(f"wrote {OUT_F16}: {os.path.getsize(OUT_F16)} bytes")
 
 
 def demo_conditions(cfg):
@@ -535,7 +611,7 @@ def make_demo():
 
 def main(argv=None):
     which = set(sys.argv[1:] if argv is None else argv) or {"serve", "train", "demo", "families",
-                                                             "bf16"}
+                                                             "bf16", "f16"}
     sys.path.insert(0, ROOT)
     import jax
     import torch
@@ -552,6 +628,8 @@ def main(argv=None):
         make_families()
     if "bf16" in which:
         make_bf16()
+    if "f16" in which:
+        make_f16()
     if not which & {"serve", "train"}:
         return
     cfg = load_config(PRESET)

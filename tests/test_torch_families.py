@@ -770,15 +770,18 @@ def test_every_preset_builds_with_jax_parameters_and_summary(flagship_ctx, full_
 
 
 def test_float16_is_the_only_refusal():
-    """unsupported() names a compute_dtype outside float32 and bfloat16
-    only; every other option of the JAX config builds."""
+    """unsupported() names only a compute_dtype outside float32, bfloat16
+    and float16 (float16, once refused, is ported); every other option of
+    the JAX config builds."""
     from cape_tpu_torch.models.cape import unsupported
 
     kw = dict(FAMILIES["res_cmr"], op_mode="dense", fold_conditions=False, fuse_decoder=True,
               remat=True, use_res_block_dec=False)
     assert unsupported(CAPEConfig(**kw)) == []
-    assert unsupported(CAPEConfig(compute_dtype="float16")) == [
-        "compute_dtype='float16' (float32 or bfloat16)"]
+    for dtype in ("float32", "bfloat16", "float16"):
+        assert unsupported(CAPEConfig(**kw, compute_dtype=dtype)) == []
+    assert unsupported(CAPEConfig(compute_dtype="float64")) == [
+        "compute_dtype='float64' (float32, bfloat16 or float16)"]
 
 
 def test_cmr_preset_server_cli_serves(tmp_path):

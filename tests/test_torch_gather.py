@@ -24,8 +24,10 @@ torch.set_num_threads(1)
 RTOL = 1e-5
 
 
-def _bf16_ulp(v: float) -> float:
-    return 2.0 ** (np.floor(np.log2(v)) - 7)
+def _bf16_ulp(v: float, dtype=torch.bfloat16) -> float:
+    """One ulp of `dtype` (bf16 by default, or f16) at v."""
+    bits = 10 if dtype == torch.float16 else 7
+    return 2.0 ** (np.floor(np.log2(v)) - bits)
 
 
 @pytest.fixture(scope="module")
@@ -153,14 +155,15 @@ def _case(cb: int, pad_left: int, layout: str, dtype, addend: bool, seed: int):
 
 
 @pytest.mark.parametrize("addend", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("layout", ["natural", "padded"])
 @pytest.mark.parametrize("cb,pad_left", RANDOM)
 def test_band_gather_plain_equals_band_apply_plain(cb, pad_left, layout, dtype, addend):
     """The gather form against the dense blocks, with the kernel's numerics:
     f32 within 1e-6 * max|ref| (a few products summed in another order),
-    bf16 within one ulp of max|ref| (f32 sums in another order, rounded
-    once)."""
+    bf16 and f16 within one ulp of the dtype at max|ref| (f32 sums in
+    another order, rounded once)."""
     from cape_tpu_torch.ops.kernels.cheb_kernel import band_apply_plain, band_gather_plain
 
     blocks, pack, x, r, rows = _case(cb, pad_left, layout, dtype, addend, seed=cb + pad_left)
@@ -169,7 +172,7 @@ def test_band_gather_plain_equals_band_apply_plain(cb, pad_left, layout, dtype, 
     assert got.dtype == want.dtype == dtype and got.shape == want.shape == (2, rows, 5)
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    limit = 1e-6 * scale if dtype == torch.float32 else _bf16_ulp(scale)
+    limit = 1e-6 * scale if dtype == torch.float32 else _bf16_ulp(scale, dtype)
     assert err <= limit, (err, limit)
 
 

@@ -171,11 +171,21 @@ def test_model_matches_jax_on_kernel_route(small_mesh, pyramids, monkeypatch, co
         )
 
 
-@pytest.mark.parametrize("kernel_route", [False, True])
-def test_bf16_forward_tracks_f32(small_mesh, pyramids, monkeypatch, kernel_route):
-    """compute_dtype=bfloat16 (bf16 activations and band blocks) on either
-    route stays within 5% of max|f32| of the f32 forward: the rounding of
-    bf16 (8 mantissa bits) over ~20 layers, not a wrong path."""
+# the half-precision forward's limit, relative to max|f32|: bf16 keeps 8
+# significant bits, f16 11
+HALF_FORWARD_LIMIT = {"bfloat16": 5e-2, "float16": 5e-2 / 8}
+
+
+@pytest.mark.parametrize("kernel_route,half", [
+    pytest.param(False, "bfloat16", id="False"), pytest.param(True, "bfloat16", id="True"),
+    pytest.param(False, "float16", id="False-float16"),
+    pytest.param(True, "float16", id="True-float16"),
+])
+def test_bf16_forward_tracks_f32(small_mesh, pyramids, monkeypatch, kernel_route, half):
+    """compute_dtype=bfloat16 or float16 (half-precision activations and band
+    blocks) on either route stays within HALF_FORWARD_LIMIT of max|f32| of
+    the f32 forward (5% for bf16, 8x less for f16): the dtype's rounding
+    over ~20 layers, not a wrong path."""
     from cape_tpu_torch.models.cape import DTYPES
     from cape_tpu_torch.ops import cheb
 
@@ -183,7 +193,7 @@ def test_bf16_forward_tracks_f32(small_mesh, pyramids, monkeypatch, kernel_route
         monkeypatch.setattr(cheb, "VM_MIN_BATCH", 2)
         monkeypatch.setattr(cheb, "VM_MIN_COLS", 1)
     outs = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", half):
         cfg = CAPEConfig(**SMALL, compute_dtype=dtype)
         ctx = _ctx(small_mesh, pyramids, dtype=DTYPES[dtype])
         model = CAPE(cfg).init_params(torch.Generator().manual_seed(4), ctx)
@@ -197,15 +207,28 @@ def test_bf16_forward_tracks_f32(small_mesh, pyramids, monkeypatch, kernel_route
             out = model.decode(ctx, torch.cat([zm, y, y2], -1), y, y2)
         assert out.dtype == DTYPES[dtype]
         outs[dtype] = (zm.float().numpy(), out.float().numpy())
-    for a, b in zip(outs["bfloat16"], outs["float32"]):
+    for a, b in zip(outs[half], outs["float32"]):
         assert np.isfinite(a).all()
-        np.testing.assert_allclose(a, b, rtol=0, atol=5e-2 * np.abs(b).max())
+        np.testing.assert_allclose(a, b, rtol=0, atol=HALF_FORWARD_LIMIT[half] * np.abs(b).max())
 
 
 @pytest.mark.parametrize("change", [{"compute_dtype": "float16"}])
-def test_unported_configs_raise(change):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CAPE(CAPEConfig(**dict(SMALL, **change)))
+def test_unported_configs_raise(change, small_mesh, pyramids):
+    """compute_dtype=float16 builds (it was refused before the port took it):
+    the parameters stay f32, a forward computes in f16. A compute_dtype
+    outside the three is still refused, naming the three."""
+    from cape_tpu_torch.models.cape import DTYPES
+
+    cfg = CAPEConfig(**dict(SMALL, **change))
+    ctx = _ctx(small_mesh, pyramids, dtype=DTYPES[cfg.compute_dtype])
+    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    y, y2 = model.embed_conditions(torch.zeros(2, 126), torch.eye(4)[:2])
+    with torch.no_grad():
+        out = model.decode(ctx, torch.zeros(2, cfg.nz + cfg.nz_cond + cfg.nz_cond2), y, y2)
+    assert out.dtype == torch.float16 and torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="float32, bfloat16 or float16"):
+        CAPE(CAPEConfig(**dict(SMALL, compute_dtype="float64")))
 
 
 def test_discriminate_raises(small_mesh, pyramids):

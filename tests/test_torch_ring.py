@@ -156,6 +156,8 @@ def test_ring_wrapper_refuses_what_the_kernel_does_not_take():
         ck._check_cuda("ring_cheb2", x)
     with pytest.raises(TypeError, match="float32, bfloat16"):
         ck.ring_cheb2(x.double(), blocks.double(), 128, 256, w0.double(), w1.double(), 1)
+    with pytest.raises(TypeError, match=r"float16 \(kernel takes float32, bfloat16\)"):
+        ck.ring_cheb2(x.half(), blocks.half(), 128, 256, w0.half(), w1.half(), 1)
     with pytest.raises(TypeError, match="w0"):
         ck.ring_cheb2(x, blocks, 128, 256, w0.bfloat16(), w1, 1)
     with pytest.raises(ValueError, match="contiguous"):

@@ -274,7 +274,8 @@ def test_import_loads_no_jax_flax_or_yaml():
         "       'meshops.normals', 'tools.plot_metrics', 'tools.dtype_ablation',\n"
         "       'tools.opt_state_ab', 'tools.acceptance', 'tools.export_model',\n"
         "       'tools.tf_ckpt_converter', 'tools.artifact_drill', 'tools.endurance',\n"
-        "       'tools.flagship', 'meshops.toy', 'meshops.native_aabb']\n"
+        "       'tools.flagship', 'meshops.toy', 'meshops.native_aabb', 'parallel.mesh',\n"
+        "       'parallel.multihost']\n"
         "assert not [n for n in new if 'cape_tpu_torch.' + n not in names], names\n"
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "print(sorted(m for m in sys.modules\n"
@@ -346,9 +347,10 @@ def test_server_cli_serves_and_stops_on_sigterm():
 
 def test_unported_server_options_raise(engines):
     """Micro-batching is the default (and micro_batch=False the opt-out);
-    --data_parallel is refused with NotImplementedError naming what is
-    missing (no silent substitute); --artifact, ported, refuses the
-    checkpoint mode's flags (exit 2)."""
+    --data_parallel 2 on the CPU asks for more devices than the host has and
+    raises the over-request ValueError before anything is built (the DP
+    engine itself is tests/test_torch_parallel.py's); --artifact, ported,
+    refuses the checkpoint mode's flags (exit 2)."""
     from cape_tpu_torch.apps.server import main, serve
 
     _, eng = engines
@@ -362,6 +364,6 @@ def test_unported_server_options_raise(engines):
     with pytest.raises(SystemExit) as e:
         main(["--artifact", "model.capex", "--fresh-init", "--device", "cpu"])
     assert e.value.code == 2
-    with pytest.raises(NotImplementedError, match="--data_parallel"):
+    with pytest.raises(ValueError, match="requested a 2-device mesh but only 1 devices"):
         main(["--config", FLAGSHIP,
               "--name", "x", "--data_parallel", "2", "--device", "cpu"])

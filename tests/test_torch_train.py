@@ -316,11 +316,15 @@ def test_unported_modes_raise(change, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("change", [{"data_parallel": 2}])
 def test_unported_trainer_options_raise(setup, change, tmp_path):
+    """data_parallel=2, once refused as not ported, is ported: without a
+    process group the Trainer drives its one device, so asking for two
+    raises the over-request ValueError (tests/test_torch_parallel.py runs
+    it over a group)."""
     from cape_tpu_torch.train.loop import Trainer
 
     _, ctx, data = setup
     cfg = CAPEConfig(**TINY, **change)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="requested a 2-device mesh but only 1 devices"):
         Trainer(cfg, _model(CAPEConfig(**TINY), ctx), ctx, data, workdir=str(tmp_path))
 
 

@@ -48,8 +48,8 @@ class EpsCAPE(JaxCAPE):
 
 @pytest.fixture(scope="module")
 def setup(small_mesh):
-    """Both packages' contexts of the icosphere pyramids (padded layout), f32
-    and bf16, and the synthetic data."""
+    """Both packages' contexts of the icosphere pyramids (padded layout), f32,
+    bf16 and f16, and the synthetic data."""
     from cape_tpu.meshops.pyramid import build_pyramid
     from cape_tpu.meshops.topology import vertices_per_edge
     from cape_tpu.ops.sparse import build_graph_context as jax_context
@@ -62,7 +62,8 @@ def setup(small_mesh):
     edges = vertices_per_edge(faces, len(verts))
     ctxs = {}
     for name, np_dtype, dtype in (("float32", np.float32, torch.float32),
-                                  ("bfloat16", jnp.bfloat16, torch.bfloat16)):
+                                  ("bfloat16", jnp.bfloat16, torch.bfloat16),
+                                  ("float16", np.float16, torch.float16)):
         ctxs[name] = (jax_context(pyr, pyr_d, edges, verts, padded=True, dtype=np_dtype),
                       build_graph_context(pyr, pyr_d, edges, verts, padded=True, dtype=dtype))
     data = synthetic_bodydata(n_train=32, n_test=6, num_verts=len(verts), seed=0, n_val=8)
@@ -168,18 +169,25 @@ def _port_steps(model, cfg, ctx, batches, eps, spe):
         {k: v.numpy() for k, v in updates.items()}, state
 
 
-@pytest.mark.parametrize("opt_state_dtype", ["float32", "bfloat16"])
-def test_bf16_train_step_within_the_derived_bound_of_jax(setup, kernel_route, opt_state_dtype):
-    """Two GAN steps in compute_dtype=bfloat16 (warmup: step 2's update
-    carries both gradients), kernel route, in the port and in JAX from the
-    same parameters, batches and eps. Each metric has JAX's dtype (recon,
-    kl, edge, the GAN terms and loss_d bf16; reg_g and loss_g f32), the
-    parameters and updates stay f32, and the port is held to JAX's bf16
-    step by bounds derived from bf16's effect in JAX itself (JAX's bf16
-    step against its f32 step; make_torch_golden.bf16_bounds): each metric
-    within its bound, each leaf's update summary within its player's
-    bound (G or D: twice the largest such effect over that player's
-    leaves)."""
+@pytest.mark.parametrize("compute_dtype,opt_state_dtype", [
+    pytest.param("bfloat16", "float32", id="float32"),
+    pytest.param("bfloat16", "bfloat16", id="bfloat16"),
+    pytest.param("float16", "float32", id="float16-compute"),
+])
+def test_bf16_train_step_within_the_derived_bound_of_jax(setup, kernel_route, compute_dtype,
+                                                         opt_state_dtype):
+    """Two GAN steps in a half-precision compute_dtype (bfloat16, with either
+    optimizer-state dtype, or float16; warmup: step 2's update carries both
+    gradients), kernel route, in the port and in JAX from the same
+    parameters, batches and eps. Each metric has JAX's dtype (recon, kl,
+    edge, the GAN terms and loss_d in the compute dtype; reg_g and loss_g
+    f32), the parameters and updates stay f32, and the port is held to
+    JAX's half-precision step by bounds derived from the dtype's effect in
+    JAX itself (JAX's step in that dtype against its f32 step;
+    make_torch_golden.bf16_bounds, at the dtype's ulp): each metric within
+    its bound, each leaf's update summary within its player's bound (G or
+    D: twice the largest such effect over that player's leaves). The test
+    ids name the optimizer-state dtype of the bf16 cases."""
     ctxs, data = setup
     kw = dict(TINY, lr_warmup=True)
     f32_model = _model(CAPEConfig(**kw), ctxs["float32"][1])
@@ -188,16 +196,17 @@ def test_bf16_train_step_within_the_derived_bound_of_jax(setup, kernel_route, op
     batches = _batches(data, ctxs["float32"][1].perm0, 2)
     eps = np.random.default_rng(9).standard_normal((2, B, 8)).astype(np.float32)
     runs = {}
-    for dtype, extra in (("float32", {}), ("bfloat16", {"opt_state_dtype": opt_state_dtype})):
+    for dtype, extra in (("float32", {}), (compute_dtype, {"opt_state_dtype": opt_state_dtype})):
         jcfg = JaxConfig(**kw, compute_dtype=dtype, **extra)
         runs[dtype] = _jax_steps(params, jcfg, ctxs[dtype][0], batches, eps, spe)
-    cfg = CAPEConfig(**kw, compute_dtype="bfloat16", opt_state_dtype=opt_state_dtype)
-    model = _model(cfg, ctxs["bfloat16"][1])
+    cfg = CAPEConfig(**kw, compute_dtype=compute_dtype, opt_state_dtype=opt_state_dtype)
+    model = _model(cfg, ctxs[compute_dtype][1])
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    got, dtypes, updates, state = _port_steps(model, cfg, ctxs["bfloat16"][1], batches, eps, spe)
-    want, want_dtypes, want_updates = runs["bfloat16"]
+    got, dtypes, updates, state = _port_steps(model, cfg, ctxs[compute_dtype][1], batches, eps,
+                                              spe)
+    want, want_dtypes, want_updates = runs[compute_dtype]
     assert dtypes == want_dtypes
-    assert want_dtypes["recon"] == "bfloat16" and want_dtypes["loss_g"] == "float32"
+    assert want_dtypes["recon"] == compute_dtype and want_dtypes["loss_g"] == "float32"
     keys = sorted(want_updates)
     assert sorted(updates) == keys and all(u.dtype == np.float32 for u in updates.values())
     summ = lambda u: np.stack([update_summary(u[k]) for k in keys])
@@ -205,7 +214,7 @@ def test_bf16_train_step_within_the_derived_bound_of_jax(setup, kernel_route, op
         np.array([[m[k] for k in METRICS] for m in want]),
         np.array([[m[k] for k in METRICS] for m in runs["float32"][0]]),
         summ(want_updates), summ(runs["float32"][2]), keys,
-        [want_updates[k].size for k in keys])
+        [want_updates[k].size for k in keys], dtype=compute_dtype)
     for i in range(2):
         for j, k in enumerate(METRICS):
             err = abs(got[i][k] - want[i][k]) / abs(want[i][k])
