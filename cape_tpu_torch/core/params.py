@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from cape_tpu_torch.parallel.mesh2d import full, shard_apply
+
 LEAKY_SLOPE = 0.2
 
 
@@ -48,7 +50,11 @@ def dense_init(generator: torch.Generator, fin: int, fout: int) -> dict:
 
 
 def dense_apply(p: dict, x: torch.Tensor, activation=None) -> torch.Tensor:
-    y = torch.matmul(x, p["kernel"].to(x.dtype)) + p["bias"].to(x.dtype)
+    """x @ kernel + bias. Under tensor parallelism the kernel may be this
+    rank's shard, column- or row-parallel (`parallel.mesh2d.shard_apply`),
+    and the bias is added whole (`mesh2d.full`)."""
+    matmul = lambda x, _, w: torch.matmul(x, w.to(x.dtype))
+    y = shard_apply(matmul, x, [], p["kernel"]) + full(p["bias"]).to(x.dtype)
     if activation is not None:
         y = activation(y)
     return y

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from cape_tpu_torch.meshops.normals import face_normals, vertex_normals
+from cape_tpu_torch.parallel.mesh2d import sharded_sum
 
 
 def reconstruction_loss_per_sample(pred, gt, mask=None, kind: str = "l1",
@@ -110,14 +111,15 @@ def gan_discriminator_loss(d_logits_real, d_logits_fake, smooth: float = 0.1):
 
 def generator_fc_l2(params: dict) -> torch.Tensor:
     """Sum of squared FC kernels the reference regularizes: encoder
-    fc_mean / fc_var and decoder fc1."""
+    fc_mean / fc_var and decoder fc1 (a sharded kernel's squares summed
+    over its model group, `parallel.mesh2d`)."""
     gen = params["generator"]
     terms = [
         gen["encoder"]["fc_mean"]["kernel"],
         gen["encoder"]["fc_var"]["kernel"],
         gen["decoder"]["fc1"]["kernel"],
     ]
-    return sum(w.square().sum() for w in terms)
+    return sum(sharded_sum(w, w.square().sum()) for w in terms)
 
 
 def regularization_scale(regularization: float) -> float:

@@ -29,6 +29,7 @@ from cape_tpu_torch.models import blocks
 from cape_tpu_torch.ops.banded import padded_size
 from cape_tpu_torch.ops.cheb import cheb_conv, cheb_conv_folded
 from cape_tpu_torch.ops.sparse import GraphContext
+from cape_tpu_torch.parallel import mesh2d
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -320,7 +321,7 @@ class CAPE(nn.Module):
             x = cheb_conv(x, ctx.lap[0], dec["out"]["w"])
         if ctx.padded:
             x = x[:, : ctx.level_sizes[0], :]  # exit the padded layout
-        return x + dec["out"]["b"].to(x.dtype)
+        return x + mesh2d.full(dec["out"]["b"]).to(x.dtype)
 
     # ------------------------------------------------------------- sampling
     @staticmethod
@@ -347,7 +348,7 @@ class CAPE(nn.Module):
         sends it to the kernel."""
         disc = self.params["discriminator"]
         if detach_params:
-            disc = {k: {n: t.detach() for n, t in p.items()} for k, p in disc.items()}
+            disc = {k: {n: mesh2d.detach(t) for n, t in p.items()} for k, p in disc.items()}
         x = x.to(self.dtype)
         if ctx.padded:
             x = _pad_vertex_rows(x)

@@ -15,6 +15,16 @@ below that it takes the small-batch v2 route only when that is opted into
 (`ops.kernels.enabled()`) and the op is in the natural layout. Those
 thresholds were measured on a TPU; they are kept so that both packages
 route the same convs, and are to be recalibrated on the GPU.
+
+Under tensor parallelism (`parallel.mesh2d`) a conv weight may be this
+rank's shard: a column-parallel conv copies its input, computes the rank's
+output channels and gathers them; a row-parallel one scatters its input
+channels, computes a partial output and reduces it. A folded conv does
+either once, at its exit. The gate judges each rank's own shapes: B is the
+rank's rows and C its input channels (fin for a column shard, its share of
+them for a row shard). JAX's gate sees the global array inside one jit, so
+the two packages may route a sharded conv differently; both routes compute
+the same function.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 from cape_tpu_torch.ops import kernels
 from cape_tpu_torch.ops.banded import BandedOp
 from cape_tpu_torch.ops.kernels import cheb_kernel
+from cape_tpu_torch.parallel.mesh2d import shard_apply
 
 VM_MIN_COLS = 2048
 VM_MIN_BATCH = 32
@@ -74,7 +85,12 @@ def _cheb_conv_projfirst(x: torch.Tensor, lap, weight: torch.Tensor) -> torch.Te
 
 
 def cheb_conv(x: torch.Tensor, lap, weight: torch.Tensor) -> torch.Tensor:
-    """y = sum_k T_k(L~) x @ W[k]; x: [..., V, Fin], weight [K, Fin, Fout]."""
+    """y = sum_k T_k(L~) x @ W[k]; x: [..., V, Fin], weight [K, Fin, Fout]
+    (or this rank's shard of it)."""
+    return shard_apply(lambda x, _, w: _cheb_conv(x, lap, w), x, [], weight)
+
+
+def _cheb_conv(x: torch.Tensor, lap, weight: torch.Tensor) -> torch.Tensor:
     global kernel_routes, v2_routes
     K = weight.shape[0]
     if K == 2 and x.dim() == 3 and isinstance(lap, BandedOp) and lap.pallas_eligible:
@@ -123,21 +139,35 @@ def cheb_conv_up_folded(
     """cheb_conv_up over concat([x, c (x) 1, ...]) taken before the unpool,
     with the condition channels folded (see cheb_conv_folded): each
     condition term is (T_k(L~) U 1) (x) (c W_c[k])."""
-    K, fin_total, _ = weight.shape
+    return shard_apply(lambda x, conds, w: _cheb_conv_up_folded(x, conds, up, lap_up, w),
+                       x, conds, weight)
+
+
+def _cheb_conv_up_folded(x, conds, up, lap_up, weight):
+    K, fin_total, fout = weight.shape
     fx = x.shape[-1]
     w = weight.to(x.dtype)
-    y = cheb_conv_up(x, up, lap_up, w[:, :fx, :])
-
     ones = torch.ones((x.shape[-2], 1), dtype=x.dtype, device=x.device)
     seed_basis = [up(ones)]
     if K == 2:
         seed_basis.append(lap_up(ones))
+    V = seed_basis[0].shape[-2]
+    # a row shard may hold no channel of x, only conditions
+    y = (cheb_conv_up(x, up, lap_up, w[:, :fx, :]) if fx
+         else x.new_zeros(x.shape[:-2] + (V, fout)))
+    return _add_conditions(y, conds, w, seed_basis, fx, fin_total)
+
+
+def _add_conditions(y, conds, w, seed_basis, off: int, fin_total: int):
+    """y plus each condition's term basis_k (x) (c @ W_c[k]), the
+    conditions' weight rows starting at `off`."""
     V = y.shape[-2]
-    off = fx
     for c in conds:
         dim = c.shape[-1]
-        c = c.to(x.dtype)
-        for k in range(K):
+        if not dim:
+            continue
+        c = c.to(y.dtype)
+        for k in range(w.shape[0]):
             proj = c @ w[k, off : off + dim, :]                  # [B, Fout]
             basis = seed_basis[k].reshape((1,) * (y.dim() - 2) + (V, 1))
             y = y + basis * proj[..., None, :]
@@ -161,11 +191,16 @@ def cheb_conv_folded(
 
     cond_seed: the per-vertex coefficient of the broadcast condition
     ([V, 1]); None means ones (fresh concat)."""
-    K, fin_total, _ = weight.shape
+    return shard_apply(lambda x, conds, w: _cheb_conv_folded(x, conds, lap, w, cond_seed),
+                       x, conds, weight)
+
+
+def _cheb_conv_folded(x, conds, lap, weight, cond_seed):
+    K, fin_total, fout = weight.shape
     fx = x.shape[-1]
     w = weight.to(x.dtype)
-    y = cheb_conv(x, lap, w[:, :fx, :])
-
+    # a row shard may hold no channel of x, only conditions
+    y = _cheb_conv(x, lap, w[:, :fx, :]) if fx else x.new_zeros(x.shape[:-1] + (fout,))
     V = y.shape[-2]
     seed = (
         torch.ones((V, 1), dtype=x.dtype, device=x.device)
@@ -173,15 +208,4 @@ def cheb_conv_folded(
         else cond_seed.to(x.dtype)
     )
     seed_basis = cheb_basis(seed, lap, K)        # K x [V, 1]
-    off = fx
-    for c in conds:
-        dim = c.shape[-1]
-        c = c.to(x.dtype)
-        for k in range(K):
-            proj = c @ w[k, off : off + dim, :]                  # [B, Fout]
-            basis = seed_basis[k].reshape((1,) * (y.dim() - 2) + (V, 1))
-            y = y + basis * proj[..., None, :]
-        off += dim
-    if off != fin_total:
-        raise ValueError(f"condition channels {off} != weight rows {fin_total}")
-    return y
+    return _add_conditions(y, conds, w, seed_basis, fx, fin_total)

@@ -193,6 +193,15 @@ class DataParallel:
         dist.broadcast(t, src=self._src, group=self.group)
         return [int(v) for v in t.tolist()]
 
+    def shard_state(self, state):
+        """Data parallelism keeps the whole train state on every rank: the
+        state itself (`parallel.mesh2d.MeshParallel` splits it)."""
+        return state
+
+    def full_state(self, state):
+        """The whole train state: the state itself."""
+        return state
+
     def barrier(self) -> None:
         """Wait for every rank: an all-reduce of one element on the device."""
         if self.group is None:

@@ -35,6 +35,19 @@ write is broadcast, so every rank raises), the profile and the dashboard;
 on resume the lead restores and broadcasts the parameters, the optimizer
 state and the step.
 
+Tensor parallelism (`dp`, a `parallel.mesh2d.MeshParallel`) goes through
+the same seam: rows, the gradient mean and the metric reductions run over
+the rank's data group, and after the lead's restore and broadcast
+(`init_or_restore`) each rank keeps its shard of every sharded parameter
+and optimizer buffer (`shard_state`); a checkpoint is written from the
+whole state, which every rank helps assemble (`full_state`), in the same
+format as a single process's.
+
+The eval noise is JAX's: the batch at row offset `begin` of an evaluation
+keyed `key` draws normal(fold_in(fold_in(PRNGKey(seed), key), begin)) with
+`core.prng`, which is what JAX's fit gives its evaluate, and `predict`
+draws normal(fold_in(rng, begin)), as JAX's predict does.
+
 Not ported: the K-step scan of the JAX package (it exists to save round
 trips to a remote TPU).
 """
@@ -50,6 +63,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cape_tpu_torch.core import prng
 from cape_tpu_torch.core.config import CAPEConfig
 from cape_tpu_torch.data.loader import BatchStream, BodyData
 from cape_tpu_torch.models.cape import CAPE
@@ -68,6 +82,12 @@ def noise(shape, device, *key: int) -> torch.Tensor:
     seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randn(shape, generator=gen, device=device)
+
+
+def eval_noise(key: np.ndarray, begin: int, shape, device) -> torch.Tensor:
+    """JAX's eval noise for the batch at row offset `begin`:
+    normal(fold_in(key, begin), shape), on `device`."""
+    return torch.from_numpy(prng.normal(prng.fold_in(key, begin), shape)).to(device)
 
 
 def default_dp(cfg: CAPEConfig, device) -> DataParallel:
@@ -162,8 +182,12 @@ class Trainer:
         others wait for it) or restores, and broadcasts what it restored:
         the parameters, every optimizer buffer and count, and the step (the
         parameters also when it restored nothing, so that every rank starts
-        from the lead's)."""
+        from the lead's). Then each rank keeps its shard of the state
+        (`shard_state`: a no-op but under tensor parallelism); a state sharded
+        by an earlier call is first made whole again."""
         dp = self.dp
+        self.state = dp.full_state(self.state)
+        self.model = self.state.model
         if self.cfg.restart:
             if self.lead:
                 shutil.rmtree(self.run_dir, ignore_errors=True)
@@ -181,18 +205,22 @@ class Trainer:
                     dp.replicate(tx.state_tensors(dict(self.model.named_parameters())))
         if dp.group is not None:
             dp.replicate(self.model)
+        dp.shard_state(self.state)
         return self.state.step
 
     def _save_checkpoint(self, step: int) -> None:
-        """The lead writes the checkpoint (and the parameter histograms);
-        under data parallelism its failure is broadcast, so that every rank
-        raises instead of waiting in the next step's collective."""
+        """The lead writes the checkpoint (and the parameter histograms) of
+        the whole state, which every rank helps assemble under tensor
+        parallelism; under data parallelism its failure is broadcast, so
+        that every rank raises instead of waiting in the next step's
+        collective."""
         err = None
+        state = self.dp.full_state(self.state)
         if self.lead:
             try:
-                ckpt.save_checkpoint(self.ckpt_dir, self.state, step, keep=self.cfg.checkpoint_keep)
+                ckpt.save_checkpoint(self.ckpt_dir, state, step, keep=self.cfg.checkpoint_keep)
                 if self._logger.tb is not None:
-                    self._logger.tb.add_param_histograms(step, self.model.state_dict())
+                    self._logger.tb.add_param_histograms(step, state.model.state_dict())
             except Exception as e:  # raised below, after every rank has heard of it
                 err = e
         if self.dp.group is not None and not self.dp.broadcast_ints([err is None])[0]:
@@ -293,7 +321,8 @@ class Trainer:
         """Mean per-sample recon/kl/edge over a split, in batches of
         cfg.batch_size; the tail batch is padded with zero rows, which are
         dropped before the mean. The noise of the batch at row offset
-        `begin` is seeded from (seed, key, begin). Under data parallelism
+        `begin` is JAX's eval noise (`eval_noise`) under
+        fold_in(PRNGKey(seed), key). Under data parallelism
         each rank evaluates its rows of each padded batch and
         `all_gather_rows` brings every rank's per-sample metrics to all."""
         cfg = self.cfg
@@ -303,20 +332,50 @@ class Trainer:
             data = self._val_data
         else:
             data = self._on_device(split)
-        n, bs = len(data["disp"]), cfg.batch_size
-        lo, hi = self.rows
+        rng = prng.fold_in(prng.PRNGKey(cfg.seed), key)
         sums: dict[str, float] = {}
         with torch.inference_mode():
-            for begin in range(0, n, bs):
-                rows = min(bs, n - begin)
-                batch = {
-                    k: torch.cat([v[begin : begin + rows],
-                                  v.new_zeros((bs - rows,) + v.shape[1:])])[lo:hi]
-                    for k, v in data.items()
-                }
-                eps = noise((bs, cfg.nz), self.device, cfg.seed, key, begin)[lo:hi]
+            for rows, batch, eps in self._padded_batches(data, rng):
                 _, metrics = eval_step(self.model, cfg, self.ctx, batch, eps)
-                metrics = self.dp.all_gather_rows(metrics, bs)
+                metrics = self.dp.all_gather_rows(metrics, cfg.batch_size)
                 for k, v in metrics.items():
                     sums[k] = sums.get(k, 0.0) + float(v[:rows].double().sum())
+        n = len(data["disp"])
         return {k: v / max(n, 1) for k, v in sums.items()}
+
+    def predict(self, disp, pose, clo, rng: np.ndarray | None = None) -> np.ndarray:
+        """Batched full-dataset autoencoding forward (the reference's
+        predict, as JAX's Trainer.predict): disp [N, V, 3] in the natural
+        vertex order, in batches of cfg.batch_size with a zero-padded tail
+        batch, each batch's eps JAX's (`eval_noise`) under `rng` (a
+        `core.prng` key; default PRNGKey(0)). Returns the normalized-space
+        predictions [N, V, 3] f32 in the natural vertex order, on every rank:
+        each rank computes its rows of each batch and `all_gather_rows`
+        brings them to all."""
+        perm = self.ctx.perm0
+        disp = np.asarray(disp, np.float32)
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+        data = {"disp": dev(disp if perm is None else disp[:, perm]), "pose": dev(pose),
+                "clo": dev(clo)}
+        outs = []
+        with torch.inference_mode():
+            for rows, batch, eps in self._padded_batches(
+                    data, prng.PRNGKey(0) if rng is None else rng):
+                pred, _ = eval_step(self.model, self.cfg, self.ctx, batch, eps)
+                pred = self.dp.all_gather_rows({"pred": pred}, self.cfg.batch_size)["pred"]
+                outs.append(pred[:rows].cpu().numpy())
+        out = np.concatenate(outs, axis=0)
+        return out if perm is None else np.ascontiguousarray(out[:, np.argsort(perm)])
+
+    def _padded_batches(self, data: dict[str, torch.Tensor], rng: np.ndarray):
+        """For each batch of cfg.batch_size rows of `data` (the tail batch
+        padded with zero rows): its number of real rows, this rank's rows of
+        it and of its noise, JAX's eval noise under `rng` (`eval_noise`)."""
+        bs = self.cfg.batch_size
+        lo, hi = self.rows
+        for begin in range(0, len(data["disp"]), bs):
+            rows = min(bs, len(data["disp"]) - begin)
+            batch = {k: torch.cat([v[begin: begin + rows],
+                                   v.new_zeros((bs - rows,) + v.shape[1:])])[lo:hi]
+                     for k, v in data.items()}
+            yield rows, batch, eval_noise(rng, begin, (bs, self.cfg.nz), self.device)[lo:hi]

@@ -48,8 +48,8 @@ def param_labels(params: dict, optim_condnet: bool = True) -> dict[str, str]:
     return labels
 
 
-def _global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def _square_sum(tensors, device) -> torch.Tensor:
+    return sum((t.float().square().sum() for t in tensors), torch.zeros((), device=device))
 
 
 def _rounded(x: float, dtype: torch.dtype) -> float:
@@ -86,6 +86,11 @@ class Optimizer:
         self.optim_condnet = cfg.optim_condnet
         self.count = {"g": 0, "d": 0}
         self.buffers: dict[str, dict[str, torch.Tensor]] = {}
+        # tensor parallelism (parallel.mesh2d.MeshParallel.shard_state): the
+        # parameters whose gradients are this rank's shards, and the sum of
+        # a tensor over the rank's model group (without it, the tensor)
+        self.sharded: frozenset[str] = frozenset()
+        self.model_sum = lambda t: t
 
     def labels(self, names) -> dict[str, str]:
         tops = param_labels(dict.fromkeys(n.split(".")[0] for n in names), self.optim_condnet)
@@ -99,7 +104,13 @@ class Optimizer:
             names = [n for n in grads if labels[n] == player]
             if not names:
                 continue
-            norm = _global_norm(grads[n] for n in names)
+            # a sharded leaf's squares summed over the model group, a
+            # replicated leaf's (whole on every rank) counted once
+            dev = grads[names[0]].device
+            norm = torch.sqrt(
+                _square_sum((grads[n] for n in names if n not in self.sharded), dev)
+                + self.model_sum(_square_sum((grads[n] for n in names
+                                              if n in self.sharded), dev)))
             # optax: select(|g| < max, g, g / |g| * max), without a host sync
             clip = lambda g: torch.where(norm < GRAD_CLIP_NORM, g, g / norm * GRAD_CLIP_NORM)
             count = self.count[player]

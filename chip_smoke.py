@@ -213,6 +213,20 @@ result line):
      (one step, one eval batch). (e) The DP engine over [cuda:0, cuda:0]
      (32 rows a device) against the single-device engine's 64-row decode,
      within 1e-5 * max|ref|, 7 launches per device call.
+ 22. mesh2d (after phase 21): tensor parallelism (parallel/mesh2d.py),
+     the flagship in f32 at global batch 64 on phase 21 (c)'s inputs, the
+     ranks Gloo processes on the one card (`chip_smoke.py tp-rank ...`,
+     each mesh's with a timeout, killed on it; a rank's failure fails the
+     phase). (a) MeshParallel(1, 2), 64 rows a rank, and (b)
+     MeshParallel(2, 2), 32 rows a data group: two steps held to the
+     single-process batch-64 step (metrics 1e-4 relative, updates by
+     hold_updates); every rank's v3 convs a step, as (B, C, F), and its
+     launches, forward and backward, those the gate gives its shapes
+     (`tp_routes`: the column-parallel products at F = fout / 2); every
+     rank's parameters and optimizer buffers at their shard shapes; the
+     step time and its collectives' share (ranks that share one card
+     measure no scaling). (c) MeshParallel(1, 1) in an NCCL group of 1
+     through the Trainer (one step, one eval batch, a checkpoint).
 Every timed record carries `bound_ms`, the least time the card could take
 for the same work (see `bound`). The per-case records go to
 build/chip_smoke_kernels.json. The last two lines are a JSON summary of
@@ -331,6 +345,11 @@ SERVE_DECODE_LAUNCHES = {1: 0, 16: 0, 64: 9}
 # take before it is killed, and the steps each rank times after the two
 # held ones
 DP_RANKS, DP_BATCH, DP_TIMEOUT, DP_TIMED_STEPS = 2, 64, 300, 6
+# phase 22's tensor-parallel runs: the (dp, tp) meshes on the one card (Gloo
+# ranks), at phase 21's global batch and inputs, the seconds a mesh's ranks
+# may take before they are killed, and the steps each rank times after the
+# two held ones
+TP_MESHES, TP_TIMEOUT, TP_TIMED_STEPS = [(1, 2), (2, 2)], 420, 4
 
 
 def log(*a):
@@ -2703,6 +2722,56 @@ def dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
         dist.destroy_process_group()
 
 
+def reference_steps(cfg, ctx, batches, eps, spe) -> tuple[list, dict]:
+    """The single-process steps on the global batches of `dp_inputs` from
+    the seed-0 parameters: (metrics per step, the last step's updates as
+    numpy)."""
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState, train_step
+
+    ref_cfg = cfg.replace(batch_size=DP_BATCH)
+    model = CAPE(ref_cfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
+    state = TrainState(model, Optimizer(ref_cfg, spe))
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    metrics = []
+    for batch, e in zip(batches, eps):
+        m, updates = train_step(state, ctx, {k: dev(v) for k, v in batch.items()}, dev(e))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, {k: v.cpu().numpy() for k, v in updates.items()}
+
+
+def run_ranks(subcommand: str, n: int, workdir: str, timeout: float, *args, meanwhile=None):
+    """Start n ranks of a Gloo group on a free port (`chip_smoke.py
+    SUBCOMMAND RANK N PORT WORKDIR *ARGS`, one process each), run
+    `meanwhile()` if given, and wait for every rank until `timeout` seconds
+    after the start; a rank still running then is killed, and a rank that
+    did not exit 0 fails the phase. Returns what `meanwhile` returned."""
+    import socket
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), subcommand, str(r),
+                               str(n), str(port), workdir, *map(str, args)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    deadline = time.monotonic() + timeout
+    try:
+        result = meanwhile() if meanwhile is not None else None
+        outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0] for p in procs]
+    finally:
+        for p in procs:   # no rank outlives the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{subcommand} {r} of {n} exited {p.returncode}:\n{out[-4000:]}")
+    return result
+
+
 def dp_train_phase(cfg, ctx, smi):
     """Phase 21 (c): DP_RANKS Gloo ranks on the one card (`dp_rank`), the
     flagship in f32 at global batch DP_BATCH (32 rows a rank: the kernel
@@ -2713,48 +2782,16 @@ def dp_train_phase(cfg, ctx, smi):
     fails the phase. Logs the 2-rank step time and its all-reduce share (two
     ranks share one card: no scaling is measured). Returns (forward,
     backward launches of the ranks, the records)."""
-    import socket
-    import sys
-
-    from cape_tpu_torch.models.cape import CAPE
-    from cape_tpu_torch.train.optim import Optimizer
-    from cape_tpu_torch.train.step import TrainState, train_step
-
     t_phase = time.perf_counter()
     batches, eps, spe = dp_inputs(cfg, ctx.perm0)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=os.path.join(ROOT, "build"))
     try:
         np.savez(os.path.join(workdir, "inputs.npz"), eps=eps, steps_per_epoch=spe,
                  **{f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "dp-rank",
-                                   str(r), str(DP_RANKS), str(port), workdir], cwd=ROOT,
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(DP_RANKS)]
-        deadline = time.monotonic() + DP_TIMEOUT
-        try:
-            # the single-process reference at the same global batch, meanwhile
-            ref_cfg = cfg.replace(batch_size=DP_BATCH)
-            model = CAPE(ref_cfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
-            state = TrainState(model, Optimizer(ref_cfg, spe))
-            dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
-            ref_metrics = []
-            for batch, e in zip(batches, eps):
-                m, ref_updates = train_step(state, ctx, {k: dev(v) for k, v in batch.items()},
-                                            dev(e))
-                ref_metrics.append({k: float(v) for k, v in m.items()})
-            ref_updates = {k: v.cpu().numpy() for k, v in ref_updates.items()}
-            outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0] for p in procs]
-        finally:
-            for p in procs:   # no rank outlives the phase
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(timeout=30)
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                raise AssertionError(f"DP rank {r} exited {p.returncode}:\n{out[-4000:]}")
+        # the single-process reference at the same global batch, meanwhile
+        ref_metrics, ref_updates = run_ranks(
+            "dp-rank", DP_RANKS, workdir, DP_TIMEOUT,
+            meanwhile=lambda: reference_steps(cfg, ctx, batches, eps, spe))
         ranks = [dict(np.load(os.path.join(workdir, f"rank{r}.npz"))) for r in range(DP_RANKS)]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2794,12 +2831,15 @@ def dp_train_phase(cfg, ctx, smi):
     return fwd, bwd, rec
 
 
-def nccl_phase(cfg, ctx):
-    """Phase 21 (d): one rank in an NCCL group of 1 through the DP Trainer
-    (synthetic n_train=64: one step of batch 32 and one eval batch), counts
-    at 0 just before and read just after: NCCL initialises, the parameter
-    broadcast, the gradient all-reduce and the eval's row gather run. Returns
-    (forward, backward launches)."""
+def nccl_phase(cfg, ctx, mesh: bool = False):
+    """Phase 21 (d), and with `mesh` phase 22 (c): one rank in an NCCL group
+    of 1 through the Trainer (synthetic n_train=64: one step of batch 32 and
+    one eval batch, a checkpoint), counts at 0 just before and read just
+    after: NCCL initialises, the parameter broadcast, the gradient
+    all-reduce and the eval's row gather run. With `mesh` the Trainer's dp
+    is MeshParallel(1, 1): its groups made with new_group on NCCL, every
+    leaf "sharded" over a model group of one (copy and gather run), the
+    checkpoint assembled whole. Returns (forward, backward launches)."""
     import socket
 
     import torch.distributed as dist
@@ -2807,8 +2847,10 @@ def nccl_phase(cfg, ctx):
     from cape_tpu_torch.data.synthetic import synthetic_bodydata
     from cape_tpu_torch.models.cape import CAPE
     from cape_tpu_torch.parallel import multihost
+    from cape_tpu_torch.parallel.mesh2d import MeshParallel
     from cape_tpu_torch.train.loop import Trainer
 
+    name = "TP 1x1 over NCCL" if mesh else "NCCL at world size 1"
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2817,25 +2859,31 @@ def nccl_phase(cfg, ctx):
     workdir = tempfile.mkdtemp(prefix="chip_smoke_nccl_", dir=os.path.join(ROOT, "build"))
     multihost.initialize(f"localhost:{port}", 1, 0, backend="nccl")
     try:
+        dp = MeshParallel(1, 1, device=torch.device("cuda", 0)) if mesh else None
         model = CAPE(tcfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
         zero_counts()
-        trainer = Trainer(tcfg, model, ctx, data, workdir=workdir)
+        trainer = Trainer(tcfg, model, ctx, data, workdir=workdir, dp=dp)
         val, _ = trainer.fit()
         torch.cuda.synchronize()
         counts = read_counts()
-        backend = dist.get_backend(trainer.dp.group)
+        groups = [trainer.dp.group] + ([dp.model_group, dp.data.group] if mesh else [])
+        backends = [dist.get_backend(g) for g in groups]
+        n_sharded = len(trainer.state.tx.sharded)
+        saved = os.listdir(trainer.ckpt_dir)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(workdir, ignore_errors=True)
-    log(f"NCCL at world size 1: backend {backend}, {trainer.num_steps} step to step "
-        f"{trainer.state.step}, val recon {val}; counts {json.dumps(counts)}")
-    if (backend != "nccl" or trainer.dp.world_size != 1 or trainer.state.step != 1
+    log(f"{name}: backends {backends}, {n_sharded} leaves sharded, {trainer.num_steps} step to "
+        f"step {trainer.state.step}, val recon {val}, checkpoints {saved}; counts "
+        f"{json.dumps(counts)}")
+    if (set(backends) != {"nccl"} or trainer.dp.world_size != 1 or trainer.state.step != 1
+            or bool(n_sharded) != mesh or len(saved) != 1
             or not all(math.isfinite(v) for v in val)):
-        raise AssertionError("NCCL at world size 1: the DP Trainer did not run")
+        raise AssertionError(f"{name}: the Trainer did not run")
     if ((counts["launches"], counts["bwd_launches"]) != (FWD_PER_STEP + FWD_PER_EVAL,
                                                          BWD_PER_STEP)
             or not only(counts, "launches", "bwd_launches")):
-        raise AssertionError(f"NCCL at world size 1: counts {counts}")
+        raise AssertionError(f"{name}: counts {counts}")
     return counts["launches"], counts["bwd_launches"]
 
 
@@ -2888,6 +2936,262 @@ def f16_dp_phase(cfg, ctx, model, smi):
            "seconds": time.perf_counter() - t_phase}
     log(f"f16-dp phase: {rec['seconds']:.2f} s")
     return rec, (f16_fwd, f16_bwd), (dp_fwd + nccl_fwd + engine_fwd, dp_bwd + nccl_bwd)
+
+# ---------------------------------------------------- phase 22: mesh2d (TP)
+def tp_routes(params: dict, cfg, B: int, tp: int, index: int) -> list[tuple[int, int, int]]:
+    """The (B, C, F) of every conv of one flagship train step's forward
+    that the gate (ops.cheb) sends to the v3 kernel on model index `index`
+    of a tp-way model group feeding B rows, derived from the K=2 conv
+    weights' full shapes `params` ({path: shape}), JAX's leaf rule and the
+    gate: a column-parallel conv keeps its input channels C (the whole x)
+    and computes F = fout / tp; a row-parallel one takes the rank's rows of
+    [x | y | y2] and convolves only its share of x's channels (none: no
+    conv); a replicated one is whole. The gate routes B >= VM_MIN_BATCH with
+    B * C >= VM_MIN_COLS. Each routed conv launches one forward and one
+    backward apply (its input is an activation that needs its gradient);
+    the encoder and decoder run once a step, the discriminator's pred three
+    times."""
+    from cape_tpu_torch.ops import cheb
+    from cape_tpu_torch.parallel.mesh2d import MODEL_AXIS, leaf_spec
+
+    if cfg.cond_encoder or cfg.K != 2 or not cfg.fold_conditions:
+        raise ValueError("tp_routes derives the flagship's plan only")
+    ncond = cfg.nz_cond + cfg.nz_cond2
+    convs = []   # (full weight shape, x's channels among its input rows, calls a step)
+    for i in range(cfg.num_conv_layers):
+        w = params[f"generator.encoder.layer{i}.w"]
+        convs.append((w, w[1], 1))
+    for i in range(cfg.num_conv_layers):
+        w = params[f"generator.decoder.layer{i}.conv.w"]
+        convs.append((w, w[1] - ncond, 1))
+    w = params["generator.decoder.out.w"]
+    convs.append((w, w[1] - ncond, 1))
+    w = params["discriminator.pred.w"]
+    convs.append((w, w[1], 3))
+    routes = []
+    for shape, cx, calls in convs:
+        spec = leaf_spec(shape, tp)
+        axis = spec.index(MODEL_AXIS) if spec else None
+        C, F = cx, shape[2]
+        if axis == 2:
+            F = shape[2] // tp
+        elif axis == 1:
+            n = shape[1] // tp
+            C = max(0, min((index + 1) * n, cx) - index * n)
+        if C and B >= cheb.VM_MIN_BATCH and B * C >= cheb.VM_MIN_COLS:
+            routes += [(B, C, F)] * calls
+    return sorted(routes)
+
+
+def tp_rank(rank: int, n: int, port: int, workdir: str, dp: int, tp: int) -> None:
+    """One rank of phase 22 (a) or (b), started as `chip_smoke.py tp-rank
+    RANK N PORT DIR DP TP`: the flagship (f32, seed-0 parameters broadcast
+    from rank 0, then sharded) on the one card, a rank of a Gloo
+    MeshParallel(DP, TP), its data group's rows of the two global steps of
+    DIR/inputs.npz; per step the counts (at 0 just before, read just after)
+    and the (B, C, F) of every v3 conv it launched; its parameters' and
+    optimizer buffers' shapes checked against its shards; then
+    TP_TIMED_STEPS more steps, each timed by the host clock around a
+    synchronised step, with the share of its collectives (each one
+    synchronised before and after). Writes DIR/rank<RANK>.npz; the lead
+    adds the step-2 updates gathered whole."""
+    import torch.distributed as dist
+
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.core.config import load_config
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.parallel import multihost
+    from cape_tpu_torch.parallel.mesh2d import MeshParallel, shard_of
+    from cape_tpu_torch.train.optim import Optimizer
+    from cape_tpu_torch.train.step import TrainState, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    multihost.initialize(f"localhost:{port}", n, rank, backend="gloo")
+    try:
+        mp = MeshParallel(dp, tp, device=torch.device("cuda", 0))
+        cfg = load_config(PRESET, batch_size=DP_BATCH, compute_dtype="float32",
+                          name="chip_smoke_tp")
+        ctx = build_context(cfg, device="cuda")
+        model = mp.replicate(CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx)
+                             .to("cuda"))
+        whole = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        lo, hi = mp.local_rows(DP_BATCH)
+        with np.load(os.path.join(workdir, "inputs.npz")) as f:
+            eps = torch.from_numpy(f["eps"][:, lo:hi]).cuda()
+            batches = [{k.split("/")[1]: torch.from_numpy(np.ascontiguousarray(f[k][lo:hi])).cuda()
+                        for k in f.files if k.startswith(f"{i}/")} for i in range(2)]
+            spe = int(f["steps_per_epoch"])
+        state = mp.shard_state(TrainState(model, Optimizer(cfg, spe)))
+
+        routed = []
+        v3 = cheb_kernel.cheb2_banded_v3
+
+        def logged_v3(x, band_op, weight):
+            routed.append((x.shape[0], x.shape[2], weight.shape[2]))
+            return v3(x, band_op, weight)
+
+        cheb_kernel.cheb2_banded_v3 = logged_v3
+        metrics, counts, routes = [], [], []
+        for batch, e in zip(batches, eps):
+            routed.clear()
+            zero_counts()
+            m, updates = train_step(state, ctx, batch, e, reduce=mp.all_reduce_mean)
+            torch.cuda.synchronize()
+            counts.append(read_counts())
+            routes.append(sorted(routed))
+            metrics.append([float(v) for v in mp.all_reduce_mean(m).values()])
+        cheb_kernel.cheb2_banded_v3 = v3
+        names = list(m)
+        bad = []
+        for k, p in model.named_parameters():
+            s = shard_of(p)
+            want = list(whole[k])
+            if s is not None:
+                want[s.axis] //= tp
+            got = [list(p.shape)] + [list(b.shape) for b in state.tx.buffers[k].values()]
+            if got != [want] * len(got):
+                bad.append((k, got, want))
+        if bad:
+            raise AssertionError(f"rank {rank}: parameters or buffers not at their shard shapes: "
+                                 f"{bad}")
+        n_sharded = len(state.tx.sharded)
+        full_updates = {}
+        named = dict(model.named_parameters())
+        with torch.no_grad():
+            for k, u in updates.items():
+                s = shard_of(named[k])
+                full_updates[k] = (u if s is None else s.gather(u, s.axis)).cpu().numpy()
+
+        comm = [0.0, 0]   # seconds and bytes in collectives
+        calls = {}
+        for op in ("all_reduce", "broadcast"):
+            calls[op] = getattr(dist, op)
+
+            def timed(tensor, *a, _op=calls[op], **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _op(tensor, *a, **kw)
+                torch.cuda.synchronize()
+                comm[0] += time.perf_counter() - t0
+                comm[1] += tensor.numel() * tensor.element_size()
+                return out
+
+            setattr(dist, op, timed)
+        step_s = []
+        for i in range(TP_TIMED_STEPS):
+            mp.barrier()
+            comm[:] = [0.0, 0]
+            t0 = time.perf_counter()
+            train_step(state, ctx, batches[i % 2], eps[i % 2], reduce=mp.all_reduce_mean)
+            torch.cuda.synchronize()
+            step_s.append((time.perf_counter() - t0, comm[0], comm[1]))
+        for op, fn in calls.items():
+            setattr(dist, op, fn)
+        arrays = {f"update/{k}": v for k, v in full_updates.items()} if mp.lead else {}
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), metrics=np.array(metrics),
+                 metric_names=np.array(names), counts=json.dumps(counts),
+                 routes=json.dumps(routes), step_s=np.array(step_s),
+                 coords=np.array([mp.data_index, mp.model_index]),
+                 n_sharded=n_sharded, n_leaves=len(whole), **arrays)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_mesh_run(dp: int, tp: int, inputs: str, params: dict, cfg, ref, smi) -> dict:
+    """Phase 22 (a) or (b): dp*tp Gloo ranks (`tp_rank`) on the one card,
+    every one of which must exit 0 within TP_TIMEOUT seconds, or is killed
+    and fails the phase. Held to the single-process batch-64 step `ref`
+    (metrics, the step-2 updates): metrics within 1e-4 relative, updates by
+    hold_updates; every rank's launches and v3 convs a step those of
+    `tp_routes`. Returns the record."""
+    ref_metrics, ref_updates = ref
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_tp{dp}x{tp}_", dir=os.path.join(ROOT, "build"))
+    n = dp * tp
+    try:
+        shutil.copy(inputs, os.path.join(workdir, "inputs.npz"))
+        run_ranks("tp-rank", n, workdir, TP_TIMEOUT, dp, tp)
+        ranks = [dict(np.load(os.path.join(workdir, f"rank{r}.npz"))) for r in range(n)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    name = f"TP {dp}x{tp}"
+    B = DP_BATCH // dp
+    fwd = bwd = 0
+    per_rank = []
+    for r, rec in enumerate(ranks):
+        counts, routes = json.loads(str(rec["counts"])), json.loads(str(rec["routes"]))
+        want = tp_routes(params, cfg, B, tp, r % tp)
+        log(f"{name} rank {r} at {[int(v) for v in rec['coords']]} (Gloo, one card), {B} rows, "
+            f"{int(rec['n_sharded'])} of {int(rec['n_leaves'])} leaves sharded: launches a "
+            f"step {[(c['launches'], c['bwd_launches']) for c in counts]}, v3 convs (B, C, F) "
+            f"{routes[0]}")
+        for step, (c, got) in enumerate(zip(counts, routes)):
+            if [tuple(v) for v in got] != want:
+                raise AssertionError(f"{name} rank {r} step {step + 1}: v3 convs {got}, the gate "
+                                     f"gives {want}")
+            if (c["launches"], c["bwd_launches"]) != (len(want), len(want)) or not only(
+                    c, "launches", "bwd_launches"):
+                raise AssertionError(f"{name} rank {r} step {step + 1}: counts {c}, expected "
+                                     f"{len(want)} + {len(want)}")
+            fwd += c["launches"]
+            bwd += c["bwd_launches"]
+        per_rank.append(len(want))
+        if not np.array_equal(rec["metrics"], ranks[0]["metrics"]):
+            raise AssertionError(f"{name}: ranks report different reduced metrics")
+    names = [str(k) for k in ranks[0]["metric_names"]]
+    for i in range(2):
+        held_metrics(f"{name} step {i + 1} vs the single-process batch-{DP_BATCH} step",
+                     dict(zip(names, ranks[0]["metrics"][i])), ref_metrics[i])
+    got = {k[len("update/"):]: v for k, v in ranks[0].items() if k.startswith("update/")}
+    keys = sorted(ref_updates)
+    summary = np.stack([[u.sum(), np.square(u).sum(), np.abs(u).max()]
+                        for u in (ref_updates[k].astype(np.float64) for k in keys)])
+    hold_updates(f"{name} step-2 updates vs the single-process step", got, keys, summary,
+                 ref_updates)
+    steps = np.concatenate([rec["step_s"] for rec in ranks])
+    step_ms = 1e3 * float(np.median(steps[:, 0]))
+    share = float(np.median(steps[:, 1] / steps[:, 0]))
+    mb = float(np.median(steps[:, 2])) / 1e6
+    rate = float(np.median(steps[:, 2] / steps[:, 1])) / 1e9
+    log(f"{name} step at global batch {DP_BATCH} [{smi}]: {step_ms:.3f} ms (host clock around a "
+        f"synchronised step, median of {len(steps)} rank-steps), collectives' share "
+        f"{share:.1%}, {mb:.1f} MB a rank and step through them at {rate:.3f} GB/s (Gloo "
+        f"through the host, each collective synchronised); {n} ranks share one card, so this "
+        "measures no scaling")
+    return {"step_ms": step_ms, "collective_share": share, "collective_mb": mb,
+            "collective_gb_per_s": rate, "launches": [fwd, bwd],
+            "launches_per_rank_step": per_rank}
+
+
+def mesh2d_phase(cfg, ctx, smi):
+    """Phase 22: tensor parallelism (parallel/mesh2d.py). (a) MeshParallel(1,
+    2) and (b) MeshParallel(2, 2) on the one card (`tp_mesh_run`), both held
+    to one single-process batch-64 step, computed here; (c) `nccl_phase`
+    with `mesh`. Returns the record and the launches (forward, backward)."""
+    from cape_tpu_torch.models.cape import CAPE
+
+    t_phase = time.perf_counter()
+    batches, eps, spe = dp_inputs(cfg, ctx.perm0)
+    params = {k: tuple(p.shape) for k, p in CAPE(cfg).init_params(
+        torch.Generator().manual_seed(0), ctx).named_parameters()}
+    ref = reference_steps(cfg, ctx, batches, eps, spe)
+    torch.cuda.empty_cache()
+    inputs = os.path.join(ROOT, "build", "chip_smoke_tp_inputs.npz")
+    np.savez(inputs, eps=eps, steps_per_epoch=spe,
+             **{f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+    try:
+        runs = {f"{dp}x{tp}": tp_mesh_run(dp, tp, inputs, params, cfg, ref, smi)
+                for dp, tp in TP_MESHES}
+    finally:
+        os.remove(inputs)
+    nccl_fwd, nccl_bwd = nccl_phase(cfg, ctx, mesh=True)
+    fwd = sum(r["launches"][0] for r in runs.values()) + nccl_fwd
+    bwd = sum(r["launches"][1] for r in runs.values()) + nccl_bwd
+    rec = {**runs, "nccl_launches": [nccl_fwd, nccl_bwd], "seconds": time.perf_counter() - t_phase}
+    log(f"mesh2d phase: {rec['seconds']:.2f} s")
+    return rec, (fwd, bwd)
 
 
 def main():
@@ -3004,6 +3308,7 @@ def main():
     lab_lines, lab_counts = lab_phase(smi)
     rest_rec, rest_fwd, rest_bwd = lab_rest_phase(model, ctx, smi)
     f16_dp_rec, (f16_fwd, f16_bwd), (dp_fwd, dp_bwd) = f16_dp_phase(cfg, ctx, model, smi)
+    tp_rec, (tp_fwd, tp_bwd) = mesh2d_phase(cfg, ctx, smi)
     os.makedirs(os.path.dirname(RECORDS), exist_ok=True)
     with open(RECORDS, "w") as f:
         json.dump({"device": smi, "band_apply": records, "band_apply_bwd": bwd_records,
@@ -3013,7 +3318,8 @@ def main():
                    "microbatch_latency": mb_times, "demo_mode_seconds": demo_seconds,
                    "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times},
                    "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records},
-                   "artifact": artifact_rec, "lab_rest": rest_rec, "f16_dp": f16_dp_rec}, f)
+                   "artifact": artifact_rec, "lab_rest": rest_rec, "f16_dp": f16_dp_rec,
+                   "mesh2d": tp_rec}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -3022,9 +3328,9 @@ def main():
         "source": GATHER_SOURCE,
         "replaces": REPLACES,
         # the forward launches of the serve, train-mode, microbatch, demo,
-        # families, train-prod, lab-rest and (f32) DP main paths
+        # families, train-prod, lab-rest, (f32) DP and TP main paths
         "launches": (launches + run_fwd + mb_launches + demo_launches + fam_fwd + prod_fwd
-                     + rest_fwd + dp_fwd),
+                     + rest_fwd + dp_fwd + tp_fwd),
         # worst f32 error over the batch-32 shapes of serving and training;
         # times and bounds summed over the seven band applies of one
         # batch-32 decode
@@ -3039,7 +3345,7 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES_BWD,
-        "launches": run_bwd + fam_bwd + prod_bwd + rest_bwd + dp_bwd,
+        "launches": run_bwd + fam_bwd + prod_bwd + rest_bwd + dp_bwd + tp_bwd,
         # worst f32 error of the addend variant over the train steps'
         # shapes (the CMR output conv's included); times and bounds summed
         # over the 17 backward applies of one flagship step
@@ -3124,5 +3430,7 @@ if __name__ == "__main__":
 
     if sys.argv[1:2] == ["dp-rank"]:   # one rank of phase 21's data-parallel run
         dp_rank(*map(int, sys.argv[2:5]), sys.argv[5])
+    elif sys.argv[1:2] == ["tp-rank"]:   # one rank of phase 22's tensor-parallel runs
+        tp_rank(*map(int, sys.argv[2:5]), sys.argv[5], *map(int, sys.argv[6:8]))
     else:
         main()

@@ -504,8 +504,9 @@ def test_evaluate_drops_tail_padding(setup, tmp_path):
     """Trainer.evaluate over a split of 6 rows at batch 4 (a tail batch of
     2 real rows and 2 zero rows) averages the real rows only: it equals
     the mean of eval_step's per-sample metrics over unpadded batches with
-    the same noise."""
-    from cape_tpu_torch.train.loop import Trainer, noise
+    the same noise (JAX's eval noise under fold_in(PRNGKey(seed), key))."""
+    from cape_tpu_torch.core import prng
+    from cape_tpu_torch.train.loop import Trainer, eval_noise
     from cape_tpu_torch.train.step import eval_step
 
     _, ctx, data = setup
@@ -520,7 +521,8 @@ def test_evaluate_drops_tail_padding(setup, tmp_path):
         rows = slice(begin, min(begin + B, 6))
         batch = {"disp": torch.from_numpy(disp[rows][:, ctx.perm0]),
                  "pose": torch.from_numpy(pose[rows]), "clo": torch.from_numpy(clo[rows])}
-        eps = noise((B, cfg.nz), "cpu", cfg.seed, 5, begin)[: rows.stop - begin]
+        key = prng.fold_in(prng.PRNGKey(cfg.seed), 5)
+        eps = eval_noise(key, begin, (B, cfg.nz), "cpu")[: rows.stop - begin]
         _, m = eval_step(model, cfg, ctx, batch, eps)
         for k, v in m.items():
             per.setdefault(k, []).append(v.double())
