@@ -176,18 +176,22 @@ class InferenceEngine(BatchedCalls):
     def autoencode(self, disp, pose, clo, rng: int | None = None, sample: bool = False):
         """Full reconstruction. sample=False uses the posterior mean;
         sample=True draws z = mu + sigma * eps with the JAX engine's
-        row-keyed eps: row i from normal(fold_in(PRNGKey(seed), i))
-        (`core.prng.normal_rows`), so one integer seed `rng` gives the JAX
-        engine's draw, whatever the batch size. Like the JAX engine, the
-        seed is taken modulo 2**32."""
+        row-keyed eps: row i from normal(fold_in(PRNGKey(seed), i)) in
+        z_mean's dtype, the compute dtype (`core.prng.normal_rows`), and
+        computes z in that dtype, as the JAX engine does; so one integer seed
+        `rng` gives the JAX engine's draw, whatever the batch size. Like the
+        JAX engine, the seed is taken modulo 2**32."""
         z_mean, z_logvar, y, y2 = self.encode(disp, pose, clo)
         if sample:
             seed = 0 if rng is None else int(rng) % (1 << 32)
-            eps = prng.normal_rows(seed, len(z_mean), z_mean.shape[1])
-            (z,) = self._batched(
-                self._count("sample", lambda m, c, zm, zl, e: m.sample_z(zm, zl, e)),
-                len(z_mean), z_mean, z_logvar, eps,
-            )
+            # encode's outputs come back as f32 holding the compute dtype's values
+            eps = prng.normal_rows(seed, len(z_mean), z_mean.shape[1], self.model.dtype)
+
+            def sample_z(m, c, zm, zl, e):
+                return m.sample_z(zm.to(m.dtype), zl.to(m.dtype), e.to(m.dtype))
+
+            (z,) = self._batched(self._count("sample", sample_z), len(z_mean), z_mean, z_logvar,
+                                 eps)
         else:
             z = z_mean
         z_total = np.concatenate([z, y, y2], axis=-1)

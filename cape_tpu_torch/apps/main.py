@@ -6,15 +6,17 @@
 
 Counterpart of `cape_tpu.apps.main`. Every mode prints the architecture
 table (`models.summary.describe`) first.
-  * train: the graph context, the model (parameters from torch.Generator
-    seed 0), the data and the Trainer; fit, then, as the JAX package, the
+  * train: the graph context, the model (parameters of
+    init_params(PRNGKey(cfg.seed)), JAX's Trainer.fit's), the data and the
+    Trainer, whose draws are JAX's too, so a run from seed s is the JAX
+    package's run from seed s; fit, then, as the JAX package, the
     DemoSuite: test_model on the test split and run() (demo samples, OBJ
     files under <workdir>/<name>/). The JAX package's production setting
     is `--compute_dtype bfloat16 --batch_size 16` (f32 parameters);
     `--opt_state_dtype bfloat16` keeps the momentum in bf16; `--restart 0`
     resumes from the newest checkpoint of the run (either package's) and
-    trains --num_epochs more; `--profile_steps N` writes a trace of N steps
-    to <workdir>/<name>/profile/trace.json.
+    trains --num_epochs more; `--profile_steps N` writes a trace of at least
+    N steps (whole dispatch chunks) to <workdir>/<name>/profile/trace.json.
   * test: restore the newest checkpoint of <workdir>/<name> (written by
     either package) and run DemoSuite.test_model.
   * demo: restore it and run DemoSuite.run() (sample_vary_pose and
@@ -55,6 +57,7 @@ from cape_tpu_torch.apps.inference import InferenceEngine
 
 from cape_tpu_torch.meshops import assets
 from cape_tpu_torch.meshops.pyramid import load_or_build as load_or_build_pyramid
+from cape_tpu_torch.core import prng
 from cape_tpu_torch.core.bridge import load_jax_checkpoint
 from cape_tpu_torch.core.config import CAPEConfig, parse_cli
 from cape_tpu_torch.data.loader import BodyData
@@ -105,7 +108,7 @@ def restore_params(cfg: CAPEConfig, model: CAPE, ctx, workdir: str = "results") 
     path = latest_checkpoint(ckpt_dir)
     if path is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    model.init_params(torch.Generator().manual_seed(0), ctx)
+    model.init_params(prng.PRNGKey(0), ctx)  # the JAX package's template
     model.load_state_dict(load_jax_checkpoint(path), strict=True)
     print(f"restored {path}", flush=True)
     return model
@@ -158,7 +161,7 @@ def run(cfg: CAPEConfig, workdir: str = "results", device="cuda",
     print(summary.describe(model, ctx), flush=True)
     trainer = None
     if cfg.mode == "train":
-        model.init_params(torch.Generator().manual_seed(0), ctx).to(device)
+        model.init_params(prng.PRNGKey(cfg.seed), ctx).to(device)
         n_params = sum(p.numel() for p in model.parameters())
         print(f"{cfg.name}: {n_params} parameters on {device}", flush=True)
         data = load_bodydata(cfg) if data is None else data

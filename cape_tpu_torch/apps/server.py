@@ -713,6 +713,7 @@ def main(argv=None):
         engine = ExportedEngine(ExportedModel.load(own.artifact, device=own.device))
     else:
         from cape_tpu_torch.apps.main import build_context, resolve_config, restore_params
+        from cape_tpu_torch.core import prng
         from cape_tpu_torch.core.config import parse_cli
         from cape_tpu_torch.models.cape import CAPE
 
@@ -733,7 +734,7 @@ def main(argv=None):
         model = CAPE(cfg)
         ctx = build_context(cfg)
         if own.fresh_init:
-            model.init_params(torch.Generator().manual_seed(cfg.seed), ctx)
+            model.init_params(prng.PRNGKey(cfg.seed), ctx)  # as JAX's server
         else:
             restore_params(cfg, model, ctx, own.workdir)
         engine = InferenceEngine(model, ctx, cfg.batch_size, device=own.device, dp=dp)

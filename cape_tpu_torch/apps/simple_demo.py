@@ -5,8 +5,9 @@
 
 Counterpart of `cape_tpu.apps.simple_demo`. The parameters come from the
 newest checkpoint of --name, from a bare parameter npz (--params, keys as
-the JAX package's flatten_tree writes them), or from torch.Generator seed
-`cfg.seed` (--random, a smoke test). It runs on the GPU; without one it
+the JAX package's flatten_tree writes them), or from PRNGKey(cfg.seed)
+(--random, a smoke test): the JAX demo's draws, from JAX's keys (its
+--params template is PRNGKey(0)). It runs on the GPU; without one it
 raises unless `--device cpu` asks for the CPU.
 """
 
@@ -15,11 +16,10 @@ from __future__ import annotations
 import argparse
 import sys
 
-import torch
-
 from cape_tpu_torch.apps.demos import SimpleDemo
 from cape_tpu_torch.apps.inference import InferenceEngine
 from cape_tpu_torch.apps.main import build_context, require_device, restore_params
+from cape_tpu_torch.core import prng
 from cape_tpu_torch.core.bridge import load_jax_checkpoint
 from cape_tpu_torch.core.config import load_config
 from cape_tpu_torch.models.cape import CAPE
@@ -41,7 +41,7 @@ def main(argv=None):
     model = CAPE(cfg)
     ctx = build_context(cfg)
     if args.params:
-        model.init_params(torch.Generator().manual_seed(0), ctx)
+        model.init_params(prng.PRNGKey(0), ctx)
         shapes = {k: v.shape for k, v in model.state_dict().items()}
         # a converted checkpoint may hold e.g. (1, 1, F) biases for (F,)
         sd = {k: v.reshape(shapes[k]) if k in shapes and v.numel() == shapes[k].numel() else v
@@ -49,7 +49,7 @@ def main(argv=None):
         model.load_state_dict(sd, strict=True)
         print(f"loaded params from {args.params}", flush=True)
     elif args.random:
-        model.init_params(torch.Generator().manual_seed(cfg.seed), ctx)
+        model.init_params(prng.PRNGKey(cfg.seed), ctx)
         print("using randomly initialized params (smoke test)", flush=True)
     else:
         if not cfg.name:

@@ -10,19 +10,30 @@ seed gives the port the same draw:
   k1, k2 = split(key)                 # uint32 [2, 2]
   random_bits(key, shape)             # uint32, bit-equal to jax.random.bits
   uniform(key, shape, lo, hi)         # float32, bit-equal to jax.random.uniform
-  normal(key, shape)                  # float32, sqrt(2) * erfinv(u)
+  normal(key, shape, dtype)           # sqrt(2) * erfinv(u), in float32, bfloat16 or float16
+  normal_folded(key, data, shape, dtype)  # normal(fold_in(key, d), shape) for each d
+  truncated_normal(key, lo, hi, shape)    # float32, as jax.random.truncated_normal
   categorical(key, logits, shape)     # int32, gumbel argmax
 
 `normal` evaluates XLA's float32 `erf_inv` polynomial (Giles' single
 precision approximation) in float32 numpy, each Horner step rounded once
 as XLA's fused multiply-add rounds it; `log1p` comes from another math
-library, so a normal draw agrees to within a few float32 ulps (under
-1e-6 absolute), not bit for bit. `categorical` takes its gumbel noise in float32
+library, so a float32 normal draw agrees to within a few float32 ulps
+(under 1e-6 absolute), not bit for bit. In bfloat16 and float16 JAX draws
+other bits than in float32 (`jax._src.random._uniform` takes 8 random bits
+for bfloat16 and 16 for float16, from the low bits of the 32-bit draw)
+and rounds to the dtype after each operation; `normal` does the same, so
+a 16-bit draw is JAX's bit for bit (the float32 erf_inv's few ulps vanish
+in the rounding to 16 bits). numpy has no bfloat16, so a 16-bit draw comes
+back as float32 holding the dtype's values exactly: `torch.from_numpy(a)
+.to(dtype)` is JAX's array. `categorical` takes its gumbel noise in float32
 the same way, so the argmax agrees unless two components tie within an
 ulp.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -124,15 +135,86 @@ def erfinv_f32(x: np.ndarray) -> np.ndarray:
     return (p * x).astype(np.float32)
 
 
-def _normal_from_bits(bits: np.ndarray) -> np.ndarray:
-    u = _uniform_from_bits(bits, np.nextafter(np.float32(-1.0), np.float32(0.0)), 1.0)
-    return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+# the 16-bit dtypes: (mantissa bits, random bits jax draws, the bit pattern of 1.0)
+_HALF = {"bfloat16": (7, 8, 0x3F80), "float16": (10, 16, 0x3C00)}
 
 
-def normal(key: np.ndarray, shape) -> np.ndarray:
-    """jax.random.normal in float32: sqrt(2) * erfinv(u), u uniform on
-    (nextafter(-1, 0), 1)."""
-    return _normal_from_bits(random_bits(key, shape))
+def dtype_name(dtype) -> str:
+    """"float32", "bfloat16" or "float16" from a name or a torch or numpy
+    dtype."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in ("float32", "bfloat16", "float16"):
+        raise ValueError(f"dtype {dtype!r}: float32, bfloat16 or float16")
+    return name
+
+
+def _round_to(x: np.ndarray, dtype: str) -> np.ndarray:
+    """float32 `x` rounded to nearest even in `dtype` ("bfloat16" or
+    "float16"), as float32."""
+    x = np.asarray(x, np.float32)
+    if dtype == "float16":
+        return x.astype(np.float16).astype(np.float32)
+    u = x.view(_U32)
+    with np.errstate(over="ignore"):
+        u = (u + _U32(0x7FFF) + ((u >> _U32(16)) & _U32(1))) & _U32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _half_from_bits(h: np.ndarray, dtype: str) -> np.ndarray:
+    """16-bit patterns (in uint32) of `dtype` as float32."""
+    if dtype == "float16":
+        return h.astype(np.uint16).view(np.float16).astype(np.float32)
+    return (h << _U32(16)).view(np.float32)
+
+
+def _normal_from_bits(bits: np.ndarray, dtype: str = "float32") -> np.ndarray:
+    if dtype == "float32":
+        u = _uniform_from_bits(bits, np.nextafter(np.float32(-1.0), np.float32(0.0)), 1.0)
+        return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+    # jax._src.random._uniform and _normal_real in a 16-bit dtype, each
+    # operation rounded to the dtype
+    nmant, rng_bits, one = _HALF[dtype]
+    r = lambda v: _round_to(v, dtype)
+    b = bits & _U32((1 << rng_bits) - 1)
+    floats = _half_from_bits((b >> _U32(rng_bits - nmant)) | _U32(one), dtype) - np.float32(1.0)
+    lo = np.float32(-1.0 + 2.0 ** -(nmant + 1))   # nextafter(-1, 0) in the dtype
+    u = np.maximum(lo, r(r(floats * r(np.float32(1.0) - lo)) + lo))
+    return r(r(np.float32(np.sqrt(2))) * r(erfinv_f32(u)))
+
+
+def normal(key: np.ndarray, shape, dtype="float32") -> np.ndarray:
+    """jax.random.normal(key, shape, dtype): sqrt(2) * erfinv(u), u uniform
+    on (nextafter(-1, 0), 1) in `dtype` (float32, bfloat16 or float16; a
+    16-bit draw comes back as float32 holding its values exactly)."""
+    return _normal_from_bits(random_bits(key, shape), dtype_name(dtype))
+
+
+def normal_folded(key: np.ndarray, data, shape, dtype="float32") -> np.ndarray:
+    """normal(fold_in(key, d), shape, dtype) for each d of `data` [n],
+    stacked [n, *shape] in one vectorised draw (JAX's vmap of fold_in and
+    normal over `data`)."""
+    shape = tuple(shape)
+    data = (np.asarray(data, np.int64).ravel() & 0xFFFFFFFF).astype(_U32)
+    k1, k2 = threefry2x32(key, np.zeros(len(data), _U32), data)   # fold_in per d
+    keys = np.stack([k1, k2], axis=-1).reshape((len(data),) + (1,) * len(shape) + (2,))
+    hi, lo = _iota_2x32(shape)
+    b1, b2 = threefry2x32(keys, hi[None], lo[None])
+    return _normal_from_bits(b1 ^ b2, dtype_name(dtype))
+
+
+def truncated_normal(key: np.ndarray, lower: float, upper: float, shape) -> np.ndarray:
+    """jax.random.truncated_normal(key, lower, upper, shape) in float32:
+    sqrt(2) * erfinv(u), u uniform on (erf(lower / sqrt 2), erf(upper /
+    sqrt 2)), clipped inside (lower, upper). The two erf bounds are
+    math.erf's rounded to float32 (JAX's lax.erf for the bounds +-2 the
+    initializers use); erf_inv is within a few float32 ulps of XLA's, as
+    `normal`'s."""
+    sqrt2 = np.float32(np.sqrt(2))
+    lo, hi = np.float32(lower), np.float32(upper)
+    a, b = (np.float32(math.erf(float(v / sqrt2))) for v in (lo, hi))
+    out = (sqrt2 * erfinv_f32(uniform(key, shape, a, b))).astype(np.float32)
+    return np.clip(out, np.nextafter(lo, np.float32(np.inf)),
+                   np.nextafter(hi, np.float32(-np.inf))).astype(np.float32)
 
 
 def gumbel(key: np.ndarray, shape) -> np.ndarray:
@@ -151,12 +233,9 @@ def categorical(key: np.ndarray, logits: np.ndarray, shape=None) -> np.ndarray:
     return np.argmax(g + logits, axis=-1).astype(np.int32)
 
 
-def normal_rows(seed: int, n: int, dim: int) -> np.ndarray:
-    """Row-keyed N(0, 1) draws [n, dim]: row i from
-    normal(fold_in(PRNGKey(seed), i)), the JAX engine's sampler. A row's
-    draw depends only on (seed, i), not on how the rows are batched."""
-    rows = np.arange(n, dtype=np.uint64).astype(_U32)
-    k1, k2 = threefry2x32(PRNGKey(seed), np.zeros(n, _U32), rows)  # fold_in per row
-    hi, lo = _iota_2x32((dim,))
-    b1, b2 = threefry2x32(np.stack([k1, k2], -1)[:, None], hi[None], lo[None])
-    return _normal_from_bits(b1 ^ b2).reshape(n, dim)
+def normal_rows(seed: int, n: int, dim: int, dtype="float32") -> np.ndarray:
+    """Row-keyed N(0, 1) draws [n, dim] in `dtype`: row i from
+    normal(fold_in(PRNGKey(seed), i), (dim,), dtype), the JAX engine's
+    sampler. A row's draw depends only on (seed, i), not on how the rows
+    are batched."""
+    return normal_folded(PRNGKey(seed), np.arange(n), (dim,), dtype)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from cape_tpu_torch.core.params import conv_bias, conv_weight
+from cape_tpu_torch.core.params import conv_bias, conv_weight, split
 from cape_tpu_torch.ops.cheb import _project, cheb_conv, cheb_conv_folded, cheb_conv_up_folded
 from cape_tpu_torch.ops.norm import group_norm
 from cape_tpu_torch.parallel.mesh2d import full, shard_apply
@@ -34,8 +34,8 @@ def _bias(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- plain conv
-def conv_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -> dict:
-    return {"w": conv_weight(generator, K, fin, fout), "b": conv_bias(fout)}
+def conv_block_init(key, K: int, fin: int, fout: int) -> dict:
+    return {"w": conv_weight(key, K, fin, fout), "b": conv_bias(fout)}
 
 
 def conv_block_apply(p: dict, x, lap, down, act):
@@ -51,9 +51,9 @@ def deconv_block_apply(p: dict, x, lap, up, act):
     return act(x + _bias(p["b"], x))
 
 
-def conv1x1_init(generator: torch.Generator, fin: int, fout: int) -> dict:
+def conv1x1_init(key, fin: int, fout: int) -> dict:
     """K=1 'pointwise' graph conv; no bias."""
-    return {"w": conv_weight(generator, 1, fin, fout)}
+    return {"w": conv_weight(key, 1, fin, fout)}
 
 
 def conv1x1_apply(p: dict, x, lap):
@@ -61,13 +61,14 @@ def conv1x1_apply(p: dict, x, lap):
 
 
 # ------------------------------------------------------------- encoder resid
-def res_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -> dict:
+def res_block_init(key, K: int, fin: int, fout: int) -> dict:
+    keys = split(key, 3)
     p = {
-        "conv1": {"w": conv_weight(generator, K, fin, fout), "b": conv_bias(fout)},
-        "conv2": {"w": conv_weight(generator, K, fout, fout), "b": conv_bias(fout)},
+        "conv1": {"w": conv_weight(keys[0], K, fin, fout), "b": conv_bias(fout)},
+        "conv2": {"w": conv_weight(keys[1], K, fout, fout), "b": conv_bias(fout)},
     }
     if fin != fout:
-        p["proj"] = conv1x1_init(generator, fin, fout)
+        p["proj"] = conv1x1_init(keys[2], fin, fout)
     return p
 
 
@@ -82,19 +83,20 @@ def res_block_apply(p: dict, x_in, lap, down, act):
 
 
 # ---------------------------------------------------------- CMR decoder resid
-def cmr_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -> dict:
+def cmr_block_init(key, K: int, fin: int, fout: int) -> dict:
+    keys = split(key, 4)
     half = fout // 2
     norm = lambda c: {"gamma": torch.ones((c,)), "beta": torch.zeros((c,))}
     p = {
         "gn0": norm(fin),
-        "lin1": conv1x1_init(generator, fin, half),
+        "lin1": conv1x1_init(keys[0], fin, half),
         "gn1": norm(half),
-        "conv": {"w": conv_weight(generator, K, half, half)},
+        "conv": {"w": conv_weight(keys[1], K, half, half)},
         "gn2": norm(half),
-        "lin2": conv1x1_init(generator, half, fout),
+        "lin2": conv1x1_init(keys[2], half, fout),
     }
     if fin != fout:
-        p["proj"] = conv1x1_init(generator, fin, fout)
+        p["proj"] = conv1x1_init(keys[3], fin, fout)
     return p
 
 
@@ -119,12 +121,13 @@ def cmr_block_apply(p: dict, x_in, lap, up, n_valid: int | None = None):
 
 
 # -------------------------------------------------------- affine decoder resid
-def affine_block_init(generator: torch.Generator, K: int, fin: int, fout: int) -> dict:
+def affine_block_init(key, K: int, fin: int, fout: int) -> dict:
     """Outputs fout//2 channels, as the reference's affine block does."""
+    keys = split(key, 2)
     half = fout // 2
     return {
-        "conv": {"w": conv_weight(generator, K, fin, half)},
-        "affine": conv1x1_init(generator, fin, half),
+        "conv": {"w": conv_weight(keys[0], K, fin, half)},
+        "affine": conv1x1_init(keys[1], fin, half),
     }
 
 

@@ -24,6 +24,7 @@ from cape_tpu_torch.core.params import (
     dense_apply,
     dense_init,
     leaky_relu,
+    split,
 )
 from cape_tpu_torch.models import blocks
 from cape_tpu_torch.ops.banded import padded_size
@@ -131,23 +132,28 @@ class CAPE(nn.Module):
         return plan
 
     # ------------------------------------------------------------------ init
-    def init_params(self, generator: torch.Generator, ctx: GraphContext) -> "CAPE":
-        """Draw every parameter, the discriminator's included, from
-        `generator` (on the CPU) and register them on this module."""
+    def init_params(self, key, ctx: GraphContext) -> "CAPE":
+        """Draw every parameter, the discriminator's included, on the CPU and
+        register them on this module. `key` is a `core.prng` key: the key
+        tree is JAX's (split(key, 64), taken in this order, and each block's
+        own split), so PRNGKey(s) gives the JAX package's init_params(
+        PRNGKey(s)) values. A torch.Generator instead draws the test form
+        (`core.params`), which is not JAX's."""
         cfg = self.cfg
-        g = generator
+        keys = iter(split(key, 64))
+        nxt = lambda: next(keys)
         pose_hidden = _cond_hidden_width(cfg.cond_dim, cfg.nz_cond)
         cond_pose = {
-            "fc1": dense_init(g, cfg.cond_dim, pose_hidden),
-            "fc2": dense_init(g, pose_hidden, cfg.nz_cond),
+            "fc1": dense_init(nxt(), cfg.cond_dim, pose_hidden),
+            "fc2": dense_init(nxt(), pose_hidden, cfg.nz_cond),
         }
         if cfg.n_layer_cond == 1:
-            cond_clo = {"fc1": dense_init(g, cfg.cond2_dim, cfg.nz_cond2)}
+            cond_clo = {"fc1": dense_init(nxt(), cfg.cond2_dim, cfg.nz_cond2)}
         else:
             clo_hidden = _cond_hidden_width(cfg.cond2_dim, cfg.nz_cond2)
             cond_clo = {
-                "fc1": dense_init(g, cfg.cond2_dim, clo_hidden),
-                "fc2": dense_init(g, clo_hidden, cfg.nz_cond2),
+                "fc1": dense_init(nxt(), cfg.cond2_dim, clo_hidden),
+                "fc2": dense_init(nxt(), clo_hidden, cfg.nz_cond2),
             }
 
         enc_chans = self._encoder_channels()
@@ -155,39 +161,39 @@ class CAPE(nn.Module):
         encoder: dict = {}
         enc_init = blocks.res_block_init if cfg.use_res_block else blocks.conv_block_init
         for i in range(cfg.num_conv_layers):
-            encoder[f"layer{i}"] = enc_init(g, K, enc_chans[i], F_[i])
+            encoder[f"layer{i}"] = enc_init(nxt(), K, enc_chans[i], F_[i])
         p_last = ctx.level_sizes[-1]
         enc_out_c = F_[-1]
         if cfg.reduce_dim > 0:
             enc_out_c = F_[-1] // cfg.reduce_rate
-            encoder["reduce"] = blocks.conv1x1_init(g, F_[-1], enc_out_c)
-        encoder["fc_mean"] = dense_init(g, p_last * enc_out_c, cfg.nz)
-        encoder["fc_var"] = dense_init(g, p_last * enc_out_c, cfg.nz)
+            encoder["reduce"] = blocks.conv1x1_init(nxt(), F_[-1], enc_out_c)
+        encoder["fc_mean"] = dense_init(nxt(), p_last * enc_out_c, cfg.nz)
+        encoder["fc_var"] = dense_init(nxt(), p_last * enc_out_c, cfg.nz)
 
         decoder: dict = {}
         fc1_out_c = F_[-1] // cfg.reduce_rate
-        decoder["fc1"] = dense_init(g, cfg.z_total_dim, p_last * fc1_out_c)
+        decoder["fc1"] = dense_init(nxt(), cfg.z_total_dim, p_last * fc1_out_c)
         if cfg.reduce_dim > 0:
-            decoder["expand"] = blocks.conv1x1_init(g, fc1_out_c, F_[-1])
+            decoder["expand"] = blocks.conv1x1_init(nxt(), fc1_out_c, F_[-1])
         plan = self._decoder_plan()
         dec_init = (blocks.affine_block_init if self._affine_dec
                     else blocks.cmr_block_init if self._cmr_dec else blocks.conv_block_init)
         for i, (fin, fout) in enumerate(plan):
-            decoder[f"layer{i}"] = dec_init(g, K, fin, fout)
+            decoder[f"layer{i}"] = dec_init(nxt(), K, fin, fout)
         ncond = cfg.nz_cond + cfg.nz_cond2
         last_out = plan[-1][1] // 2 if self._affine_dec else plan[-1][1]
         decoder["out"] = {
-            "w": conv_weight(g, K, last_out + ncond, cfg.nn_input_channel),
+            "w": conv_weight(nxt(), K, last_out + ncond, cfg.nn_input_channel),
             "b": torch.full((ctx.level_sizes[0], cfg.nn_input_channel), 0.1),
         }
 
         disc: dict = {}
         c = cfg.nn_input_channel + ncond
         for i in range(len(ctx.level_sizes_d) - 1):
-            disc[f"layer{i}"] = blocks.conv_block_init(g, cfg.Kd, c, F_[i])
+            disc[f"layer{i}"] = blocks.conv_block_init(nxt(), cfg.Kd, c, F_[i])
             c = F_[i]
         # the final pred conv uses the VAE poly order, as in the reference
-        disc["pred"] = {"w": conv_weight(g, K, c, 1)}
+        disc["pred"] = {"w": conv_weight(nxt(), K, c, 1)}
 
         tree = {
             "cond_pose": cond_pose,
@@ -331,8 +337,10 @@ class CAPE(nn.Module):
         return z_mean + torch.exp(0.5 * torch.clamp(z_logvar, -30.0, 30.0)) * eps
 
     def generate(self, ctx: GraphContext, x, y, y2, eps):
-        """Full CVAE forward with the caller's noise eps [B, nz].
-        Returns (x_hat, z_mean, z_logvar, z)."""
+        """Full CVAE forward with the caller's noise eps [B, nz]: JAX draws
+        it in z_mean's dtype, as the Trainer's draws are (`core.prng`); an
+        eps of another dtype is rounded to it. Returns (x_hat, z_mean,
+        z_logvar, z)."""
         z_mean, z_logvar = self.encode(ctx, x, y, y2)
         z = self.sample_z(z_mean, z_logvar, eps.to(z_mean.dtype))
         x_hat = self.decode(ctx, torch.cat([z, y, y2], dim=-1), y, y2)

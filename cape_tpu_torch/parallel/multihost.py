@@ -130,17 +130,21 @@ def _tiny(name: str, n_procs: int, **overrides):
     return cfg, ctx, data
 
 
-def _model(cfg, ctx):
+def _model(cfg, ctx, seed: int = 0):
+    """The tiny model from PRNGKey(seed): JAX's selftest draws its step's
+    parameters from PRNGKey(0), its Trainer.fit from PRNGKey(cfg.seed)."""
+    from cape_tpu_torch.core import prng
     from cape_tpu_torch.models.cape import CAPE
 
-    return CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx)
+    return CAPE(cfg).init_params(prng.PRNGKey(seed), ctx)
 
 
 def _selftest(rank: int, nprocs: int, port: int) -> None:
     """One global train step on the tiny model; prints one JSON metrics line,
     which must be equal on every rank."""
+    from cape_tpu_torch.core import prng
     from cape_tpu_torch.data.loader import BatchStream
-    from cape_tpu_torch.train.loop import noise
+    from cape_tpu_torch.train.loop import to_device
     from cape_tpu_torch.train.optim import Optimizer
     from cape_tpu_torch.train.step import TrainState, train_step
 
@@ -168,7 +172,9 @@ def _selftest(rank: int, nprocs: int, port: int) -> None:
 
     lo, hi = mh.local_rows(cfg.batch_size)
     batch = {k: torch.from_numpy(np.ascontiguousarray(v[lo:hi])) for k, v in host_batch.items()}
-    eps = noise((cfg.batch_size, cfg.nz), mh.device, cfg.seed, 0)[lo:hi]
+    # JAX's selftest steps with PRNGKey(2): eps = normal(PRNGKey(2), (B, nz))
+    eps = to_device(prng.normal(prng.PRNGKey(2), (cfg.batch_size, cfg.nz))[lo:hi],
+                    model.dtype, mh.device)
     state = TrainState(model, Optimizer(cfg, steps_per_epoch=10))
     metrics, _ = train_step(state, ctx, batch, eps, reduce=mh.all_reduce_mean)
     m = {k: round(float(v), 6) for k, v in mh.all_reduce_mean(metrics).items()}
@@ -190,7 +196,7 @@ def _selftest_trainer(rank: int, nprocs: int, port: int) -> None:
     mh = MultiHostDataParallel(torch.device("cpu"))
     workdir = os.path.join(tempfile.gettempdir(), f"cape_torch_mh_{port}")
     try:
-        trainer = Trainer(cfg, _model(cfg, ctx), ctx, data, workdir=workdir, dp=mh)
+        trainer = Trainer(cfg, _model(cfg, ctx, cfg.seed), ctx, data, workdir=workdir, dp=mh)
         val_losses, _ = trainer.fit()
         out = {"rank": rank, "val_recon": [round(float(v), 6) for v in val_losses]}
         if not all(np.isfinite(v) for v in out["val_recon"]):
@@ -199,7 +205,7 @@ def _selftest_trainer(rank: int, nprocs: int, port: int) -> None:
         # checkpoint; init_or_restore broadcasts the lead's restored state
         wd2 = workdir if mh.lead else workdir + f"_empty{rank}"
         cfg2 = cfg.replace(restart=False, num_epochs=1)
-        trainer2 = Trainer(cfg2, _model(cfg2, ctx), ctx, data, workdir=wd2, dp=mh)
+        trainer2 = Trainer(cfg2, _model(cfg2, ctx, cfg.seed), ctx, data, workdir=wd2, dp=mh)
         trainer2.fit()
         out["resume_end_step"] = trainer2.state.step
         mh.barrier()

@@ -83,9 +83,8 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    import torch
-
     from cape_tpu_torch.apps.main import build_context, require_device
+    from cape_tpu_torch.core import prng
     from cape_tpu_torch.core.config import load_config
     from cape_tpu_torch.data.dataset_configs import dataset_config_dicts
     from cape_tpu_torch.data.loader import BodyData
@@ -131,7 +130,8 @@ def main(argv=None) -> None:
         n_val=100 if not drill_mode else 4,
     )
     ctx = build_context(cfg, device=args.device)
-    model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx).to(args.device)
+    # PRNGKey(cfg.seed): the parameters JAX's Trainer.fit starts from
+    model = CAPE(cfg).init_params(prng.PRNGKey(cfg.seed), ctx).to(args.device)
     trainer = Trainer(cfg, model, ctx, data, workdir=workdir)
     val_losses, _ = trainer.fit()
     assert np.all(np.isfinite(val_losses)), val_losses
@@ -176,7 +176,7 @@ def main(argv=None) -> None:
     if args.tf_ckpt is not None:
         tfvars = read_tf_checkpoint(args.tf_ckpt)
     else:
-        ref_params = to_jax_params(CAPE(cfg).init_params(torch.Generator().manual_seed(7), ctx))
+        ref_params = to_jax_params(CAPE(cfg).init_params(prng.PRNGKey(7), ctx))
         tfvars = synthesize_reference_vars(ref_params, cfg)
         if perm is not None:
             # real checkpoints store every vertex-indexed quantity in

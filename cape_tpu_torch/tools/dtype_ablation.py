@@ -34,11 +34,10 @@ def run_one(dtype: str, epochs: int, seed: int, workdir: str, device) -> dict:
     """Train ABLATION in `dtype` on synthetic data from `seed`, then
     evaluate: the val split's losses and DemoSuite.test_model's per-vertex
     error."""
-    import torch
-
     from cape_tpu_torch.apps.demos import DemoSuite
     from cape_tpu_torch.apps.inference import InferenceEngine
     from cape_tpu_torch.apps.main import build_context, require_device
+    from cape_tpu_torch.core import prng
     from cape_tpu_torch.core.config import CAPEConfig
     from cape_tpu_torch.data.synthetic import synthetic_bodydata
     from cape_tpu_torch.models.cape import CAPE
@@ -49,7 +48,8 @@ def run_one(dtype: str, epochs: int, seed: int, workdir: str, device) -> dict:
     require_device(device)
     ctx = build_context(cfg, device=device)
     data = synthetic_bodydata(n_train=N_TRAIN, n_test=N_TEST, num_verts=6890, seed=seed)
-    model = CAPE(cfg).init_params(torch.Generator().manual_seed(cfg.seed), ctx).to(device)
+    # PRNGKey(cfg.seed): the parameters JAX's Trainer.fit starts from
+    model = CAPE(cfg).init_params(prng.PRNGKey(cfg.seed), ctx).to(device)
     trainer = Trainer(cfg, model, ctx, data, workdir=workdir)
     t0 = time.time()
     val_losses, _ = trainer.fit()
@@ -58,7 +58,7 @@ def run_one(dtype: str, epochs: int, seed: int, workdir: str, device) -> dict:
                       smpl_model_folder=os.path.join(workdir, "no_smpl_model"),
                       results_root=workdir, seed=cfg.seed)
     metric = suite.test_model(data)
-    val = trainer.evaluate("val", 99)
+    val = trainer.evaluate("val", rng=prng.PRNGKey(99))
     return {
         "dtype": dtype,
         "val_recon": round(float(val["recon"]), 5),

@@ -20,7 +20,10 @@ TensorBoard events), wiped at the start. It runs on the GPU; without one
 it raises unless `--device cpu` asks for the CPU. Prints one JSON line at
 the end with the sustained numbers (the JAX tool's keys, and `device`);
 `--expect-final` turns the run into a gate on `final_val_recon` (6
-decimals). The port pins no value of its own.
+decimals). The parameters (PRNGKey(cfg.seed)), the batches and each step's
+noise are the JAX endurance run's, so JAX's own final_val_recon is the
+value to hold a run to; two implementations' float sums part it by some
+ulps, so take the gate's value from a port run of the same build.
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ def main(argv=None):
     from cape_tpu_torch.tools.flagship import flagship_setup
     from cape_tpu_torch.train.loop import Trainer
 
+    # init_seed None: PRNGKey(cfg.seed), as the JAX package's Trainer.fit draws it
     cfg, model, ctx = flagship_setup(
-        args.dtype, args.device, name="endurance_torch", num_epochs=args.epochs,
+        args.dtype, args.device, init_seed=None, name="endurance_torch", num_epochs=args.epochs,
         batch_size=args.batch, restart=True,
         log_every_steps=0,          # per-epoch logging only
     )

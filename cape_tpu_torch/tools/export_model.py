@@ -414,7 +414,7 @@ def main(argv=None):
          --out model.capex [--batch_size B] [--fresh-init] [--device cpu]
 
     Restores the newest checkpoint of --name under --workdir (--fresh-init:
-    parameters from torch.Generator seed cfg.seed), exports on the CPU,
+    parameters from PRNGKey(cfg.seed), as the JAX tool draws them), exports on the CPU,
     then loads the artifact on --device (default: the card; without a GPU
     it raises unless --device cpu) and decodes one batch there."""
     import argparse
@@ -438,6 +438,7 @@ def main(argv=None):
     from cape_tpu_torch.apps.main import (
         build_context, require_device, resolve_config, restore_params,
     )
+    from cape_tpu_torch.core import prng
     from cape_tpu_torch.core.bridge import to_jax_params
     from cape_tpu_torch.core.config import parse_cli
     from cape_tpu_torch.models.cape import CAPE
@@ -450,7 +451,7 @@ def main(argv=None):
     model = CAPE(cfg)
     ctx = build_context(cfg)
     if own.fresh_init:
-        model.init_params(torch.Generator().manual_seed(cfg.seed), ctx)
+        model.init_params(prng.PRNGKey(cfg.seed), ctx)
     else:
         restore_params(cfg, model, ctx, own.workdir)
     t0 = time.perf_counter()

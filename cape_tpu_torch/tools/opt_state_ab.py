@@ -36,12 +36,13 @@ def main(argv=None) -> dict:
     import torch
 
     from cape_tpu_torch.apps.main import build_context, require_device
+    from cape_tpu_torch.core import prng
     from cape_tpu_torch.core.config import CAPEConfig
     from cape_tpu_torch.data.loader import BatchStream
     from cape_tpu_torch.data.synthetic import synthetic_bodydata
     from cape_tpu_torch.models.cape import CAPE
     from cape_tpu_torch.tools.dtype_ablation import ABLATION
-    from cape_tpu_torch.train.loop import noise
+    from cape_tpu_torch.train.loop import step_noise
     from cape_tpu_torch.train.optim import Optimizer
     from cape_tpu_torch.train.step import TrainState, train_step
 
@@ -63,13 +64,18 @@ def main(argv=None) -> dict:
     n = len(disp)
     streams = BatchStream(n, cfg.batch_size, 0), BatchStream(n, cfg.batch_size, 1)
 
-    def step(arm):
-        ig, idd = (torch.from_numpy(s.next_indices()).to(device) for s in streams)
-        batch = {f"{k}_{s}": v.index_select(0, i) for k, v in train.items()
-                 for s, i in (("g", ig), ("d", idd))}
-        arm["step"] += 1
-        train_step(arm["state"], ctx, batch,
-                   noise((cfg.batch_size, cfg.nz), device, 0, arm["step"]))
+    def steps(arm, n):
+        """n train steps of `arm`; step s's noise is the JAX tool's,
+        normal(fold_in(PRNGKey(0), s)) in the compute dtype, the n steps'
+        drawn in one call."""
+        state = arm["state"]
+        eps = step_noise(0, range(state.step, state.step + n), (cfg.batch_size, cfg.nz),
+                         state.model.dtype, device)
+        for e in eps:
+            ig, idd = (torch.from_numpy(s.next_indices()).to(device) for s in streams)
+            batch = {f"{k}_{s}": v.index_select(0, i) for k, v in train.items()
+                     for s, i in (("g", ig), ("d", idd))}
+            train_step(state, ctx, batch, e)
 
     def sync():
         if cuda:
@@ -78,16 +84,15 @@ def main(argv=None) -> dict:
     arms = {}
     for name, dt in (("f32_state", "float32"), ("bf16_state", "bfloat16")):
         c = cfg.replace(opt_state_dtype=dt)
-        model = CAPE(c).init_params(torch.Generator().manual_seed(0), ctx)
-        arm = {"state": TrainState(model.to(device), Optimizer(c, STEPS_PER_EPOCH)), "step": 0,
+        model = CAPE(c).init_params(prng.PRNGKey(0), ctx)  # the JAX tool's parameters
+        arm = {"state": TrainState(model.to(device), Optimizer(c, STEPS_PER_EPOCH)),
                "blocks_ms": []}
         sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
             base = torch.cuda.memory_allocated(device)
         t0 = time.perf_counter()
-        for _ in range(2):  # warm-up: the first step makes the moment buffers
-            step(arm)
+        steps(arm, 2)  # warm-up: the first step makes the moment buffers
         sync()
         arm["warmup_s"] = time.perf_counter() - t0
         arm["step_peak_mb"] = (
@@ -107,8 +112,7 @@ def main(argv=None) -> dict:
         for _ in range(args.dispatches):
             sync()
             t0 = time.perf_counter()
-            for _ in range(STEPS_PER_DISPATCH):
-                step(arm)
+            steps(arm, STEPS_PER_DISPATCH)
             sync()
             per_dispatch.append(1e3 * (time.perf_counter() - t0))
         med = float(np.median(per_dispatch))

@@ -560,14 +560,16 @@ def cmd_parts(args):
 
 def _trainer(args, name: str, **overrides):
     """The flagship's Trainer at --batch and --dtype on synthetic data, and
-    its G and D index streams: what `step` and `trace` drive."""
+    its G and D index streams: what `step` and `trace` drive. Its step
+    noise is JAX's lab's, fold_in(PRNGKey(0), step)."""
     from cape_tpu_torch.data.loader import BatchStream
     from cape_tpu_torch.data.synthetic import synthetic_bodydata
     from cape_tpu_torch.tools.flagship import flagship_setup
     from cape_tpu_torch.train.loop import Trainer
 
+    # seed 0: the JAX lab's parameters and step noise, PRNGKey(0)
     cfg, model, ctx = flagship_setup(args.dtype, args.device, name=name, batch_size=args.batch,
-                                     padded_layout=bool(args.padded), **overrides)
+                                     padded_layout=bool(args.padded), seed=0, **overrides)
     data = synthetic_bodydata(n_train=max(256, 2 * args.batch) + 64, n_test=8,
                               num_verts=ctx.level_sizes[0], seed=0)
     trainer = Trainer(cfg, model, ctx, data)
@@ -584,11 +586,11 @@ def cmd_step(args):
     trainer, sg, sd = _trainer(args, "perflab_step", remat=bool(args.remat),
                                fuse_decoder=bool(args.fuse))
     K = args.k
-    float(trainer.run_steps(K, sg, sd)["loss_g"])
+    float(trainer.run_steps(K, sg, sd)[-1]["loss_g"])
     times = []
     for _ in range(STEP_GROUPS):
         t0 = time.perf_counter()
-        metrics = trainer.run_steps(K, sg, sd)
+        metrics = trainer.run_steps(K, sg, sd)[-1]
         float(metrics["loss_g"])  # waits for the device
         times.append((time.perf_counter() - t0) / K)
     m = {k: float(v) for k, v in metrics.items()}
@@ -824,9 +826,9 @@ def cmd_trace(args):
 
     on_device = torch.device(args.device).type == "cuda"
     trainer, sg, sd = _trainer(args, "perflab_trace")
-    float(trainer.run_steps(TRACE_WARMUP, sg, sd)["loss_g"])
+    float(trainer.run_steps(TRACE_WARMUP, sg, sd)[-1]["loss_g"])
     t0 = time.perf_counter()
-    float(trainer.run_steps(TRACE_STEPS, sg, sd)["loss_g"])
+    float(trainer.run_steps(TRACE_STEPS, sg, sd)[-1]["loss_g"])
     untraced_ms = 1000.0 * (time.perf_counter() - t0) / TRACE_STEPS
     log_dir = args.out or tempfile.mkdtemp(prefix="cape_trace_")
     os.makedirs(log_dir, exist_ok=True)
@@ -835,7 +837,7 @@ def cmd_trace(args):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities, with_stack=True) as prof:
         t0 = time.perf_counter()
-        float(trainer.run_steps(TRACE_STEPS, sg, sd)["loss_g"])  # waits for the device
+        float(trainer.run_steps(TRACE_STEPS, sg, sd)[-1]["loss_g"])  # waits for the device
         wall_ms = 1000.0 * (time.perf_counter() - t0) / TRACE_STEPS
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)

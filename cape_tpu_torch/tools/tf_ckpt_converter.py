@@ -379,13 +379,12 @@ def verify_against_template(params: dict, model, ctx) -> None:
     """Shape-check the converted tree against the port model's state dict
     (`model`'s own parameters, or a fresh init on `ctx` when it has none),
     key for key through `core.bridge.jax_keypath`."""
-    import torch
-
+    from cape_tpu_torch.core import prng
     from cape_tpu_torch.core.bridge import jax_keypath
     from cape_tpu_torch.models.cape import CAPE
 
     if next(model.parameters(), None) is None:
-        model = CAPE(model.cfg).init_params(torch.Generator().manual_seed(0), ctx)
+        model = CAPE(model.cfg).init_params(prng.PRNGKey(0), ctx)  # JAX's template
     converted = flatten_tree(params)
     for path, t in model.state_dict().items():
         key = jax_keypath(path)

@@ -3,10 +3,10 @@
 Counterpart of `cape_tpu.train.loop.Trainer`: the train split lives on the
 device in the banded (RCM) vertex order and each step's batch is gathered
 there from two [batch] index vectors; G and D draw from independent index
-streams (seeds `seed` and `seed + 1`); the reparameterization noise comes
-from a `torch.Generator` on the device seeded from (seed, step). Losses are
-screened for non-finite values at least every `steps_per_dispatch` steps
-(the one host sync of the loop), the val split is evaluated and the whole
+streams (seeds `seed` and `seed + 1`). The steps go in chunks of
+`steps_per_dispatch` (cut at each epoch end), as JAX's scanned dispatch
+goes, and each chunk's losses are screened for non-finite values at its end
+(the one host sync of the loop); the val split is evaluated and the whole
 train state checkpointed at each epoch end, metrics go to
 `<workdir>/<name>/metrics.jsonl` (and, with cfg.tensorboard, to TensorBoard
 events beside it, with each checkpoint's parameter histograms), and a
@@ -17,14 +17,28 @@ package's: restart=True wipes the run directory; restart=False resumes from
 the newest checkpoint (the port's or the JAX package's), skips both index
 streams to its step and trains cfg.num_epochs more epochs, so a run
 stopped and resumed takes the steps an uninterrupted run takes.
-cfg.profile_steps > 0 captures that many steps after the first of the run
-with torch.profiler (`<run>/profile/trace.json`).
+cfg.profile_steps > 0 captures whole chunks with torch.profiler, from the
+run's second chunk (its first if the run is one chunk) until that many
+steps are covered, as JAX's does (`<run>/profile/trace.json`).
+
+The random draws are JAX's (`core.prng`), so a run from seed s is the JAX
+package's run from seed s, given the parameters of init_params(PRNGKey(s))
+(apps.main draws them so). Step s's reparameterization noise is
+normal(fold_in(PRNGKey(seed), s), (batch_size, nz)) in the compute dtype,
+as JAX's scanned step draws it; a chunk's k steps are drawn on the host in
+one call and reach the device in one copy (non-blocking, from pinned
+memory, on CUDA). The eval noise of the batch at row offset `begin` of an
+evaluation keyed `key` is normal(fold_in(fold_in(PRNGKey(seed), key),
+begin)), which is what JAX's fit gives its evaluate, and `predict` draws
+normal(fold_in(rng, begin)), as JAX's predict does; both in the compute
+dtype too.
 
 Data parallelism (`dp`, a `parallel.mesh.DataParallel` over a process
 group; built over the default group when one is initialised): every rank
 holds the train split and the same parameters, gathers its rows
 (`local_rows`) of each global batch from the global index streams, takes
-its rows of the global noise drawn from (seed, step), and the train step
+its rows of each step's global noise (JAX's partitionable threefry gives
+the global array whatever the sharding), and the train step
 averages the ranks' gradients, so every rank applies the single-process
 run's update (up to the order of float sums). The metrics that are read
 are reduced over the ranks: the losses at each screen (so every rank
@@ -43,13 +57,8 @@ and optimizer buffer (`shard_state`); a checkpoint is written from the
 whole state, which every rank helps assemble (`full_state`), in the same
 format as a single process's.
 
-The eval noise is JAX's: the batch at row offset `begin` of an evaluation
-keyed `key` draws normal(fold_in(fold_in(PRNGKey(seed), key), begin)) with
-`core.prng`, which is what JAX's fit gives its evaluate, and `predict`
-draws normal(fold_in(rng, begin)), as JAX's predict does.
-
 Not ported: the K-step scan of the JAX package (it exists to save round
-trips to a remote TPU).
+trips to a remote TPU); a chunk's steps are launched one after another.
 """
 
 from __future__ import annotations
@@ -76,18 +85,29 @@ from cape_tpu_torch.train.optim import Optimizer
 from cape_tpu_torch.train.step import TrainState, eval_step, train_step
 
 
-def noise(shape, device, *key: int) -> torch.Tensor:
-    """Standard-normal noise from a generator on `device` seeded from `key`
-    (non-negative ints), e.g. (seed, step)."""
-    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return torch.randn(shape, generator=gen, device=device)
+def to_device(draw: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host draw (`core.prng`: float32 holding `dtype`'s values) as a
+    `dtype` tensor on `device`, in one copy: on CUDA a non-blocking one from
+    pinned memory, so the host does not wait for the device."""
+    t = torch.from_numpy(np.ascontiguousarray(draw)).to(dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
-def eval_noise(key: np.ndarray, begin: int, shape, device) -> torch.Tensor:
+def step_noise(seed: int, steps, shape, dtype: torch.dtype, device, rows=slice(None)):
+    """JAX's train-step noise of each step s of `steps`: normal(fold_in(
+    PRNGKey(seed), s), shape, dtype), stacked [len(steps), *shape], rows
+    `rows` of each, drawn in one call and on `device` in one copy."""
+    draw = prng.normal_folded(prng.PRNGKey(seed), steps, shape, dtype)
+    return to_device(draw[:, rows], dtype, device)
+
+
+def eval_noise(key: np.ndarray, begin: int, shape, device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """JAX's eval noise for the batch at row offset `begin`:
-    normal(fold_in(key, begin), shape), on `device`."""
-    return torch.from_numpy(prng.normal(prng.fold_in(key, begin), shape)).to(device)
+    normal(fold_in(key, begin), shape, dtype), on `device`."""
+    return to_device(prng.normal(prng.fold_in(key, begin), shape, dtype), dtype, device)
 
 
 def default_dp(cfg: CAPEConfig, device) -> DataParallel:
@@ -158,22 +178,27 @@ class Trainer:
             out[f"{k}_d"] = v.index_select(0, idd)
         return out
 
-    def run_steps(self, k: int, stream_g: BatchStream, stream_d: BatchStream) -> dict:
+    def run_steps(self, k: int, stream_g: BatchStream, stream_d: BatchStream) -> list[dict]:
         """k train steps back to back, each on a batch gathered on the device
-        by the next indices of the G and D streams, its noise seeded from
-        (seed, step); no host sync. Under data parallelism each rank takes
-        its rows of the global batch and of the global noise, and the ranks'
-        gradients are averaged. Returns the last step's metrics (device
+        by the next indices of the G and D streams, with JAX's noise of its
+        step (`step_noise`: the k steps' noise drawn on the host in one call
+        and copied in one); no host sync. Under data parallelism each rank
+        takes its rows of the global batch and of the global noise, and the
+        ranks' gradients are averaged. Returns each step's metrics (device
         tensors, this rank's own). Trainer.fit takes its steps here, as does
         the lab's `step` and `trace` (tools.perf_lab)."""
         cfg = self.cfg
         lo, hi = self.rows
         reduce = None if self.dp.group is None else self.dp.all_reduce_mean
-        for _ in range(k):
+        step = self.state.step
+        eps = step_noise(cfg.seed, range(step, step + k), (cfg.batch_size, cfg.nz),
+                         self.model.dtype, self.device, slice(lo, hi))
+        out = []
+        for i in range(k):
             batch = self._gather(stream_g.next_indices()[lo:hi], stream_d.next_indices()[lo:hi])
-            eps = noise((cfg.batch_size, cfg.nz), self.device, cfg.seed, self.state.step)[lo:hi]
-            metrics, _ = train_step(self.state, self.ctx, batch, eps, reduce=reduce)
-        return metrics
+            metrics, _ = train_step(self.state, self.ctx, batch, eps[i], reduce=reduce)
+            out.append(metrics)
+        return out
 
     def init_or_restore(self) -> int:
         """restart=True wipes the run directory; restart=False restores the
@@ -244,45 +269,44 @@ class Trainer:
         # the batches an uninterrupted run would take from here
         stream_g.skip(start_step)
         stream_d.skip(start_step)
-        screen_every = max(1, cfg.steps_per_dispatch)
+        chunk = max(1, cfg.steps_per_dispatch)
         end_step = start_step + self.num_steps
 
         val_losses = []
-        pending: list[tuple[int, torch.Tensor]] = []
         t_start = time.time()
         t_mark, steps_since = time.perf_counter(), 0
         profiler = contextlib.ExitStack()
         profiled = 0
+        step = start_step
         try:
-            for step in range(start_step, end_step):
+            while step < end_step:
                 done = step - start_step
-                # the trace takes the steps after the run's first (cold) one,
-                # unless the run has only one
+                # chunks of steps_per_dispatch steps, cut at each epoch end
+                n = min(chunk, end_step - step, self.steps_per_epoch - done % self.steps_per_epoch)
+                # the trace takes whole chunks after the run's first (cold)
+                # one, unless the run is one chunk, as JAX's does
                 capture = (self.lead and profiled < cfg.profile_steps
-                           and (done > 0 or self.num_steps == 1))
+                           and (done > 0 or self.num_steps <= n))
                 if capture and profiled == 0:
                     profiler.enter_context(profile_steps(os.path.join(self.run_dir, "profile")))
-                metrics = self.run_steps(1, stream_g, stream_d)
+                metrics = self.run_steps(n, stream_g, stream_d)
                 if capture:
-                    profiled += 1
-                    if profiled == cfg.profile_steps:
+                    profiled += n
+                    if profiled >= cfg.profile_steps:
                         profiler.close()
-                pending.append((step, torch.stack([metrics["loss_g"], metrics["loss_d"]])))
-                steps_since += 1
-                epoch_end = (done + 1) % self.steps_per_epoch == 0 or step + 1 == end_step
-                if len(pending) >= screen_every or epoch_end:
-                    self._screen(pending)
-                    pending = []
-                logged = cfg.log_every_steps and step % cfg.log_every_steps == 0
-                if logged or epoch_end:
-                    metrics = self.dp.all_reduce_mean(metrics)   # the global batch's
-                if logged:
-                    logger.log(step, metrics)
-                if not epoch_end:
+                self._screen([(step + i, torch.stack([m["loss_g"], m["loss_d"]]))
+                              for i, m in enumerate(metrics)])
+                for i, m in enumerate(metrics):
+                    if cfg.log_every_steps and (step + i) % cfg.log_every_steps == 0:
+                        logger.log(step + i, self.dp.all_reduce_mean(m))  # the global batch's
+                step += n
+                steps_since += n
+                done += n
+                if done % self.steps_per_epoch and step != end_step:
                     continue
                 step_ms = 1000.0 * (time.perf_counter() - t_mark) / steps_since
-                epoch = (done + 1) // self.steps_per_epoch
-                m = {k: float(v) for k, v in metrics.items()}
+                epoch = done // self.steps_per_epoch
+                m = {k: float(v) for k, v in self.dp.all_reduce_mean(metrics[-1]).items()}
                 m["loss_g_ema"] = logger.ema_g.update(m["loss_g"])
                 m["loss_d_ema"] = logger.ema_d.update(m["loss_d"])
                 val = self.evaluate("val", 1_000_000_000 + epoch)
@@ -291,10 +315,10 @@ class Trainer:
                 m["epoch"] = epoch
                 # the lr of this step's update: the schedule at the count before it
                 m["lr_g"] = float(self.state.tx.sched["g"](self.state.tx.count["g"] - 1))
-                m["sec_per_step"] = (time.time() - t_start) / (done + 1)
+                m["sec_per_step"] = (time.time() - t_start) / done
                 m["step_ms"] = step_ms  # train steps only: no eval, no checkpoint
-                logger.log(step, m, echo=True)
-                self._save_checkpoint(step + 1)
+                logger.log(step - 1, m, echo=True)
+                self._save_checkpoint(step)
                 t_mark, steps_since = time.perf_counter(), 0
         finally:
             profiler.close()
@@ -317,11 +341,13 @@ class Trainer:
                 f"latest good checkpoint: {ckpt.latest_checkpoint(self.ckpt_dir)}"
             )
 
-    def evaluate(self, split: str = "val", key: int = 0) -> dict[str, float]:
+    def evaluate(self, split: str = "val", key: int = 0,
+                 rng: np.ndarray | None = None) -> dict[str, float]:
         """Mean per-sample recon/kl/edge over a split, in batches of
         cfg.batch_size; the tail batch is padded with zero rows, which are
         dropped before the mean. The noise of the batch at row offset
-        `begin` is JAX's eval noise (`eval_noise`) under
+        `begin` is JAX's eval noise (`eval_noise`) under `rng` (a
+        `core.prng` key, as JAX's evaluate takes it), by default
         fold_in(PRNGKey(seed), key). Under data parallelism
         each rank evaluates its rows of each padded batch and
         `all_gather_rows` brings every rank's per-sample metrics to all."""
@@ -332,7 +358,8 @@ class Trainer:
             data = self._val_data
         else:
             data = self._on_device(split)
-        rng = prng.fold_in(prng.PRNGKey(cfg.seed), key)
+        if rng is None:
+            rng = prng.fold_in(prng.PRNGKey(cfg.seed), key)
         sums: dict[str, float] = {}
         with torch.inference_mode():
             for rows, batch, eps in self._padded_batches(data, rng):
@@ -370,7 +397,8 @@ class Trainer:
     def _padded_batches(self, data: dict[str, torch.Tensor], rng: np.ndarray):
         """For each batch of cfg.batch_size rows of `data` (the tail batch
         padded with zero rows): its number of real rows, this rank's rows of
-        it and of its noise, JAX's eval noise under `rng` (`eval_noise`)."""
+        it and of its noise, JAX's eval noise under `rng` (`eval_noise`, in
+        the compute dtype)."""
         bs = self.cfg.batch_size
         lo, hi = self.rows
         for begin in range(0, len(data["disp"]), bs):
@@ -378,4 +406,5 @@ class Trainer:
             batch = {k: torch.cat([v[begin: begin + rows],
                                    v.new_zeros((bs - rows,) + v.shape[1:])])[lo:hi]
                      for k, v in data.items()}
-            yield rows, batch, eval_noise(rng, begin, (bs, self.cfg.nz), self.device)[lo:hi]
+            eps = eval_noise(rng, begin, (bs, self.cfg.nz), self.device, self.model.dtype)
+            yield rows, batch, eps[lo:hi]

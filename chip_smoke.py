@@ -20,7 +20,8 @@ result line):
      addend), which the port never calls, and the achieved GB/s and share
      of the bound.
   4. serve: the flagship preset (f32, batch 32, parameters from
-     torch.Generator seed 0) behind the port's HTTP server on 127.0.0.1:0;
+     torch.Generator seed 0, the test form of core.params that the golden
+     files were written for) behind the port's HTTP server on 127.0.0.1:0;
      /health, /sample (n=40: two padded decode calls), /encode, /decode,
      /reconstruct, /stats. The kernel must have run exactly 7 times per
      decode and per encode device call.
@@ -227,6 +228,20 @@ result line):
      step time and its collectives' share (ranks that share one card
      measure no scaling). (c) MeshParallel(1, 1) in an NCCL group of 1
      through the Trainer (one step, one eval batch, a checkpoint).
+ 23. random (after phase 22): JAX's randomness on the card, each main
+     path with the counts at 0 just before and read just after. (a) The
+     flagship from init_params(prng.PRNGKey(cfg.seed)), on the card, held
+     to JAX's init_params(PRNGKey(cfg.seed)) fingerprint in
+     tests/data/torch_golden_init.npz (`hold_init`: each entry within
+     INIT_ULP, one float32 ulp of the truncated normal's 2). (b) Trainer.fit
+     of that model at batch 32 on synthetic data, in f32 and in bf16: one
+     epoch of 2 steps and one val batch on the kernel route (17 + 17
+     launches a step, 14 for the eval; all bf16 in bf16), the noise each
+     step received bit-equal to core.prng's normal(fold_in(PRNGKey(seed),
+     step)) in the compute dtype. (c) The bf16 engine's sampled
+     autoencode (32 rows): the noise of its sample_z bit-equal to
+     normal_rows(seed, 32, nz, bfloat16), 7 bf16 launches per encode and
+     decode call.
 Every timed record carries `bound_ms`, the least time the card could take
 for the same work (see `bound`). The per-case records go to
 build/chip_smoke_kernels.json. The last two lines are a JSON summary of
@@ -265,6 +280,12 @@ PRESET_DEFAULT = os.path.join(ROOT, "configs", "default_config.yaml")
 GOLDEN_FAMILIES = os.path.join(ROOT, "tests", "data", "torch_golden_families.npz")
 GOLDEN_BF16 = os.path.join(ROOT, "tests", "data", "torch_golden_bf16.npz")
 GOLDEN_F16 = os.path.join(ROOT, "tests", "data", "torch_golden_f16.npz")
+GOLDEN_INIT = os.path.join(ROOT, "tests", "data", "torch_golden_init.npz")
+# phase 23's bound on an initial parameter against JAX's, per entry: one
+# float32 ulp of 2, where the truncated normal of the conv weights ends
+# (its erf_inv is within a few float32 ulps of XLA's; the glorot kernels
+# and the constants are bit-equal)
+INIT_ULP = 2.4e-7
 # no SMPL model file: the demo suites export unposed meshes
 NO_SMPL = os.path.join(ROOT, "build", "no_smpl_model")
 GATHER_SOURCE = "cape_tpu_torch/csrc/band_gather.cu"   # rows 2, 2b and 3
@@ -3194,6 +3215,140 @@ def mesh2d_phase(cfg, ctx, smi):
     return rec, (fwd, bwd)
 
 
+def hold_init(state_dict: dict, golden) -> float:
+    """A model's initial parameters (a state dict, on any device) against
+    JAX's init golden (tests/make_torch_golden.py `init_record`): per
+    leaf, with n entries and every entry within INIT_ULP, the sum within
+    n * INIT_ULP, the sum of squares within n * INIT_ULP * (2 max|ref| +
+    INIT_ULP), max|.| within INIT_ULP, and each stored whole leaf within
+    INIT_ULP per entry. Raises past a bound; returns the worst error over
+    its bound."""
+    keys = [str(k) for k in golden["keys"]]
+    if sorted(state_dict) != keys:
+        raise AssertionError(f"init: leaves {sorted(set(state_dict) ^ set(keys))} differ")
+    worst = 0.0
+    for k, (r_sum, r_sq, r_max) in zip(keys, golden["summary"]):
+        t = state_dict[k].detach()
+        n = t.numel()
+        got = [float(t.double().sum()), float(t.double().square().sum()), float(t.abs().max())]
+        bounds = [n * INIT_ULP, n * INIT_ULP * (2 * r_max + INIT_ULP), INIT_ULP]
+        errs = [abs(g - r) for g, r in zip(got, (r_sum, r_sq, r_max))]
+        if f"whole/{k}" in golden.files:
+            errs.append(float(np.abs(t.float().cpu().numpy() - golden[f"whole/{k}"]).max()))
+            bounds.append(INIT_ULP)
+        for e, b in zip(errs, bounds):
+            if not e <= b:
+                raise AssertionError(f"init {k}: {errs} outside {bounds}")
+            worst = max(worst, e / b)
+    return worst
+
+
+def random_phase(cfg, ctx, smi) -> tuple[int, int, dict]:
+    """Phase 23: JAX's randomness on the card (see the module docstring).
+    Returns (forward, backward launches of its main paths, the record)."""
+    from cape_tpu_torch.apps.inference import InferenceEngine
+    from cape_tpu_torch.apps.main import build_context
+    from cape_tpu_torch.core import prng
+    from cape_tpu_torch.data.synthetic import synthetic_bodydata
+    from cape_tpu_torch.models.cape import CAPE
+    from cape_tpu_torch.train import loop
+
+    t_phase = t0 = time.perf_counter()
+    key = prng.PRNGKey(cfg.seed)
+    model = CAPE(cfg).init_params(key, ctx).to("cuda")
+    init_s = time.perf_counter() - t0
+    golden = np.load(GOLDEN_INIT)
+    if int(golden["seed"]) != cfg.seed:
+        raise AssertionError(f"init golden seed {golden['seed']}, config seed {cfg.seed}")
+    worst = hold_init(model.state_dict(), golden)
+    log(f"random (a) init_params(PRNGKey({cfg.seed})) on the host in {init_s:.2f} s "
+        f"[{smi}], {len(golden['keys'])} leaves held to JAX's: worst error "
+        f"{worst:.3f} of its bound (INIT_ULP {INIT_ULP} per entry)")
+    rec = {"init_s": init_s, "init_worst_of_bound": worst}
+
+    # 64 train rows (2 steps at batch 32) and 32 val rows (one eval batch)
+    data = synthetic_bodydata(n_train=96, n_test=32, num_verts=6890, seed=cfg.seed)
+    ctx_bf = build_context(cfg.replace(compute_dtype="bfloat16"), device="cuda")
+    seen, train_step = [], loop.train_step
+
+    def recorded(state, c, batch, eps, **kw):
+        seen.append(eps)   # read after the fit: no sync on the path
+        return train_step(state, c, batch, eps, **kw)
+
+    fwd = bwd = 0
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_random_", dir=os.path.join(ROOT, "build"))
+    loop.train_step = recorded
+    try:
+        for dtype, c in (("float32", ctx), ("bfloat16", ctx_bf)):
+            fcfg = cfg.replace(name=f"chip_smoke_random_{dtype}", compute_dtype=dtype,
+                               num_epochs=1, tensorboard=False)
+            m = model if dtype == "float32" else CAPE(fcfg).init_params(key, c).to("cuda")
+            seen.clear()
+            # ---- a train main path: every count at 0 just before, read just after
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer = loop.Trainer(fcfg, m, c, data, workdir=workdir)
+            val, _ = trainer.fit()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            fit_s = time.perf_counter() - t0
+            steps = trainer.state.step
+            tdt = getattr(torch, dtype)
+            want = torch.from_numpy(prng.normal_folded(key, range(steps), (32, cfg.nz),
+                                                       dtype)).to(tdt)
+            got = torch.stack([e.cpu() for e in seen]) if seen else None
+            exp = (FWD_PER_STEP * steps + FWD_PER_EVAL, BWD_PER_STEP * steps)
+            ok_half = dtype == "float32" or counts["bf16_launches"] == sum(exp)
+            log(f"random (b) Trainer.fit {dtype}: {steps} steps and one val batch in "
+                f"{fit_s:.2f} s [{smi}], val recon {val}; eps of {len(seen)} steps "
+                f"{'bit-equal' if got is not None and torch.equal(got, want) else 'NOT equal'}"
+                f" to core.prng's {dtype} draw; counts {json.dumps(counts)}")
+            if steps != 2 or got is None or got.dtype != tdt or not torch.equal(got, want):
+                raise AssertionError(f"random fit {dtype}: the steps' eps are not JAX's")
+            if ((counts["launches"], counts["bwd_launches"]) != exp or not ok_half
+                    or not only(counts, "launches", "bwd_launches", "bf16_launches")):
+                raise AssertionError(f"random fit {dtype}: counts {counts}, expected {exp}")
+            if not all(math.isfinite(v) for v in val):
+                raise AssertionError(f"random fit {dtype}: val recon {val}")
+            fwd, bwd = fwd + counts["launches"], bwd + counts["bwd_launches"]
+            rec[f"fit_{dtype}"] = {"s": fit_s, "val_recon": val, "counts": counts}
+    finally:
+        loop.train_step = train_step
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # (c) the bf16 engine's sampled autoencode, on the bf16 fit's model
+    engine = InferenceEngine(m, ctx_bf, 32)
+    drawn, sample_z = [], m.sample_z
+    m.sample_z = lambda zm, zl, e: (drawn.append(e), sample_z(zm, zl, e))[1]
+    test = data.split("test")
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        out = engine.autoencode(*test, rng=7, sample=True)
+        counts = read_counts()
+        ae_s = time.perf_counter() - t0
+    finally:
+        del m.sample_z
+    want = torch.from_numpy(prng.normal_rows(7, 32, cfg.nz, "bfloat16")).to(torch.bfloat16)
+    calls = dict(engine.calls)
+    equal = len(drawn) == 1 and drawn[0].dtype == torch.bfloat16 and torch.equal(
+        drawn[0].cpu(), want)
+    log(f"random (c) bf16 sampled autoencode of 32 rows in {ae_s:.2f} s [{smi}]: eps "
+        f"{'bit-equal' if equal else 'NOT equal'} to normal_rows(7, 32, {cfg.nz}, bfloat16); "
+        f"device calls {calls}, counts {json.dumps(counts)}")
+    n_launch = 7 * (calls["encode"] + calls["decode"])
+    if not equal or calls["sample"] != 1:
+        raise AssertionError("random: the engine's sampled eps are not JAX's bf16 draw")
+    if (counts["launches"] != n_launch or counts["bf16_launches"] != n_launch
+            or not only(counts, "launches", "bf16_launches")):
+        raise AssertionError(f"random autoencode: counts {counts}, expected {n_launch}")
+    check_mesh("bf16 sampled autoencode", out, 32)
+    fwd += counts["launches"]
+    rec["autoencode_s"] = ae_s
+    log(f"random phase: {time.perf_counter() - t_phase:.2f} s [{smi}]")
+    return fwd, bwd, rec
+
+
 def main():
     t_start = time.perf_counter()
     smi = device_phase()
@@ -3309,6 +3464,7 @@ def main():
     rest_rec, rest_fwd, rest_bwd = lab_rest_phase(model, ctx, smi)
     f16_dp_rec, (f16_fwd, f16_bwd), (dp_fwd, dp_bwd) = f16_dp_phase(cfg, ctx, model, smi)
     tp_rec, (tp_fwd, tp_bwd) = mesh2d_phase(cfg, ctx, smi)
+    rand_fwd, rand_bwd, rand_rec = random_phase(cfg, ctx, smi)
     os.makedirs(os.path.dirname(RECORDS), exist_ok=True)
     with open(RECORDS, "w") as f:
         json.dump({"device": smi, "band_apply": records, "band_apply_bwd": bwd_records,
@@ -3319,7 +3475,7 @@ def main():
                    "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times},
                    "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records},
                    "artifact": artifact_rec, "lab_rest": rest_rec, "f16_dp": f16_dp_rec,
-                   "mesh2d": tp_rec}, f)
+                   "mesh2d": tp_rec, "random": rand_rec}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -3328,9 +3484,9 @@ def main():
         "source": GATHER_SOURCE,
         "replaces": REPLACES,
         # the forward launches of the serve, train-mode, microbatch, demo,
-        # families, train-prod, lab-rest, (f32) DP and TP main paths
+        # families, train-prod, lab-rest, (f32) DP, TP and random main paths
         "launches": (launches + run_fwd + mb_launches + demo_launches + fam_fwd + prod_fwd
-                     + rest_fwd + dp_fwd + tp_fwd),
+                     + rest_fwd + dp_fwd + tp_fwd + rand_fwd),
         # worst f32 error over the batch-32 shapes of serving and training;
         # times and bounds summed over the seven band applies of one
         # batch-32 decode
@@ -3345,7 +3501,7 @@ def main():
         "route": "cuda",
         "source": GATHER_SOURCE,
         "replaces": REPLACES_BWD,
-        "launches": run_bwd + fam_bwd + prod_bwd + rest_bwd + dp_bwd + tp_bwd,
+        "launches": run_bwd + fam_bwd + prod_bwd + rest_bwd + dp_bwd + tp_bwd + rand_bwd,
         # worst f32 error of the addend variant over the train steps'
         # shapes (the CMR output conv's included); times and bounds summed
         # over the 17 backward applies of one flagship step

@@ -2,7 +2,7 @@
 JAX package on the CPU, for parameters made by the port.
 
     JAX_PLATFORMS=cpu python tests/make_torch_golden.py [serve] [train] [demo] [families] [bf16] \
-        [f16]
+        [f16] [init]
 
 Serve and train use the flagship preset, demo the nz18 release preset, each
 at full width, f32, on JAX's plain banded
@@ -84,6 +84,13 @@ golden's inputs (the first 8 meshes of both, keys "decode:...", and
 JAX itself, at least one f16 ulp of max|ref|), and two GAN steps by the
 bf16 golden's recipe (keys "b32:...", bounds from `bf16_bounds` at f16's
 ulp).
+
+init -> tests/data/torch_golden_init.npz: JAX's own init_params(PRNGKey(
+cfg.seed)) of the flagship preset (not the port's parameters: what the
+port's init_params(prng.PRNGKey(cfg.seed)) must draw), as `init_record`
+fingerprints it: per leaf, in sorted dotted key order, the float64 sum,
+sum of squares and max|.|, and every leaf under INIT_WHOLE_MAX elements
+whole. The default run writes every file but this one; name it.
 """
 
 from __future__ import annotations
@@ -102,6 +109,8 @@ OUT_DEMO = os.path.join(ROOT, "tests", "data", "torch_golden_demo.npz")
 OUT_FAMILIES = os.path.join(ROOT, "tests", "data", "torch_golden_families.npz")
 OUT_BF16 = os.path.join(ROOT, "tests", "data", "torch_golden_bf16.npz")
 OUT_F16 = os.path.join(ROOT, "tests", "data", "torch_golden_f16.npz")
+OUT_INIT = os.path.join(ROOT, "tests", "data", "torch_golden_init.npz")
+INIT_WHOLE_MAX = 4 * 1024   # init leaves with fewer elements are stored whole
 # the bf16 golden's configurations: key prefix -> (batch, overrides of the
 # bf16 run); each is held to the f32 run at its batch
 BF16_RUNS = {"b32": (32, {}), "b16": (16, {}), "opt": (32, {"opt_state_dtype": "bfloat16"})}
@@ -128,6 +137,37 @@ def fingerprint(state_dict) -> tuple[list[str], np.ndarray]:
     """(sorted keys, float64 sum of each leaf) of a port state dict."""
     keys = sorted(state_dict)
     return keys, np.array([state_dict[k].double().sum().item() for k in keys])
+
+
+def init_record(flat: dict) -> dict:
+    """The init golden's arrays of a parameter tree flattened to dotted keys:
+    keys (sorted), summary [L, 3] (each leaf's float64 sum, sum of squares
+    and max|.|) and "whole/<key>" for each leaf under INIT_WHOLE_MAX
+    elements."""
+    keys = sorted(flat)
+    arrs = {k: np.asarray(flat[k], np.float32) for k in keys}
+    summary = np.stack([[a.astype(np.float64).sum(), np.square(a.astype(np.float64)).sum(),
+                         np.abs(a).max()] for a in arrs.values()])
+    whole = {f"whole/{k}": a for k, a in arrs.items() if a.size < INIT_WHOLE_MAX}
+    return dict(keys=np.array(keys), summary=summary, **whole)
+
+
+def make_init():
+    import jax
+
+    from cape_tpu.apps.main import build_context as jax_build_context
+    from cape_tpu.core.config import load_config as jax_load_config
+    from cape_tpu.models.cape import CAPE as JaxCAPE
+    from cape_tpu_torch.core.bridge import _flatten
+
+    jcfg = jax_load_config(PRESET)
+    params = jax.jit(JaxCAPE(jcfg).init_params)(jax.random.PRNGKey(jcfg.seed),
+                                                jax_build_context(jcfg))
+    record = init_record(_flatten(jax.device_get(params)))
+    np.savez_compressed(OUT_INIT, seed=jcfg.seed, **record)
+    n_whole = sum(k.startswith("whole/") for k in record)
+    print(f"wrote {OUT_INIT}: seed {jcfg.seed}, {len(record['keys'])} leaves "
+          f"({n_whole} whole), {os.path.getsize(OUT_INIT)} bytes")
 
 
 def golden_inputs(cfg):
@@ -622,6 +662,8 @@ def main(argv=None):
     from cape_tpu_torch.models.cape import CAPE
 
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    if "init" in which:
+        make_init()
     if "demo" in which:
         make_demo()
     if "families" in which:

@@ -386,17 +386,17 @@ def small_preset(tmp_path):
 @pytest.mark.parametrize("source", ["random", "params"])
 def test_simple_demo_cli(engines, small_preset, tmp_path, source):
     """`python -m cape_tpu_torch.apps.simple_demo --device cpu`: with
-    --random (parameters from torch.Generator seed cfg.seed) or with a bare
+    --random (parameters of init_params(PRNGKey(cfg.seed)), JAX's) or with a bare
     parameter npz (the JAX flatten_tree keys, one bias stored as a
     converted checkpoint's (1, 1, F)), 4 clothing types x 3 samples as OBJ
     files, the meshes of SimpleDemo on the same parameters."""
     from cape_tpu_torch.apps import simple_demo
+    from cape_tpu_torch.core import prng
     from cape_tpu_torch.core.config import load_config
 
     _, eng = engines
     cfg = load_config(small_preset)
-    model = CAPE(cfg).init_params(torch.Generator().manual_seed(cfg.seed if source == "random"
-                                                                else 0), eng.ctx)
+    model = CAPE(cfg).init_params(prng.PRNGKey(cfg.seed), eng.ctx)
     args = ["--config", small_preset, "--device", "cpu",
             "--results_dir", str(tmp_path / "cli" / "demo_results")]
     if source == "random":

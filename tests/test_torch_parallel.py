@@ -21,11 +21,16 @@ import numpy as np
 import pytest
 import torch
 
+from cape_tpu_torch.models.cape import CAPE
+
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_RANKS = 2
 STEPS = 2
+# the seeded fit: 3 steps an epoch (48 train rows at global batch 16) in
+# dispatch chunks of 2, so that a chunk ends mid-epoch
+SEEDED = dict(num_epochs=2, steps_per_dispatch=2, tensorboard=False)
 RANK_TIMEOUT = 300   # seconds a spawned rank may take
 
 
@@ -64,9 +69,13 @@ def _setup(name="dp_test", **overrides):
 
 
 def _model(cfg, ctx):
-    from cape_tpu_torch.parallel.multihost import _model as tiny_model
-
-    return tiny_model(cfg, ctx)
+    """The tiny model's parameters in the test form (`core.params`:
+    torch.Generator seed 0), which these tests hold the ranks to the single
+    process and to JAX on. (At JAX's PRNGKey(0) parameters the residual-CMR
+    variant's step 2 is ill-conditioned: moving every parameter by one ulp
+    moves a gradient leaf by up to 8% in one process, beyond the 1e-3 step
+    tolerance.)"""
+    return CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx)
 
 
 def _inputs(cfg, ctx, data):
@@ -111,9 +120,11 @@ def _port_steps(cfg, ctx, batches, eps, dp=None):
 
 # ------------------------------------------------------------------- ranks
 def _worker(mode: str, out: str, rank: int, n: int, port: int) -> None:
-    """One rank: `step` (STEPS train steps on the inputs in <out>.inputs.npz)
-    or `fit` (a 2-epoch Trainer.fit in <out>.workdir); writes <out>.<rank>.npz
-    and prints the rank's reduced metrics."""
+    """One rank: `step` (STEPS train steps on the inputs in <out>.inputs.npz),
+    `fit` (a 2-epoch Trainer.fit in <out>.workdir) or `seeded` (SEEDED's fit
+    from JAX's PRNGKey(cfg.seed) parameters, recording the noise each step
+    received); writes <out>.<rank>.npz and prints the rank's reduced
+    metrics."""
     import torch.distributed as dist
 
     from cape_tpu_torch.parallel import multihost
@@ -131,14 +142,29 @@ def _worker(mode: str, out: str, rank: int, n: int, port: int) -> None:
             metrics, updates = _port_steps(cfg, ctx, batches, eps, mh)
             arrays = {f"update/{k}": v for k, v in updates.items()}
         else:
-            from cape_tpu_torch.train.loop import Trainer
+            from cape_tpu_torch.parallel.multihost import _model as tiny_model
+            from cape_tpu_torch.train import loop
 
-            cfg, ctx, data = _setup("dp_fit", num_epochs=2)
-            trainer = Trainer(cfg, _model(cfg, ctx), ctx, data, workdir=out + ".workdir", dp=mh)
+            if mode == "fit":
+                cfg, ctx, data = _setup("dp_fit", num_epochs=2)
+                model = _model(cfg, ctx)
+            else:
+                cfg, ctx, data = _setup("dp_seeded", **SEEDED)
+                model = tiny_model(cfg, ctx, cfg.seed)
+            seen, step = [], loop.train_step
+
+            def recorded(state, ctx, batch, eps, **kw):
+                seen.append(eps.numpy().copy())
+                return step(state, ctx, batch, eps, **kw)
+
+            loop.train_step = recorded
+            trainer = loop.Trainer(cfg, model, ctx, data, workdir=out + ".workdir", dp=mh)
             val, _ = trainer.fit()
             metrics = [{"val_recon": float(v)} for v in val]
             arrays = {f"param/{k}": v.numpy() for k, v in trainer.model.state_dict().items()}
             arrays["step"] = np.array(trainer.state.step)
+            arrays["eps"] = np.stack(seen)
+            arrays["rows"] = np.array(mh.local_rows(cfg.batch_size))
         np.savez(f"{out}.{rank}.npz", **arrays)
         print("RANK " + json.dumps({"rank": rank, "metrics": metrics}), flush=True)
     finally:
@@ -315,6 +341,69 @@ def test_two_rank_fit_matches_the_single_process_fit(tmp_path):
             np.testing.assert_array_equal(f[f"param/{k}"], f1[f"param/{k}"], err_msg=k)
             np.testing.assert_allclose(f[f"param/{k}"], v.numpy(), rtol=1e-4, atol=1e-5,
                                        err_msg=k)
+
+
+def test_two_rank_fit_from_a_seed_is_jax_fit(tmp_path):
+    """Trainer.fit over 2 ranks from JAX's PRNGKey(cfg.seed) parameters (2
+    epochs of 3 steps, dispatch chunks of 2): step s gives each rank its
+    rows of the global draw normal(fold_in(PRNGKey(seed), s), (16, nz)),
+    bit-equal to core.prng's and within 1e-6 of jax.random.normal (JAX's
+    partitionable threefry gives the global array whatever the sharding);
+    the val recons and the final parameters are JAX's Trainer.fit's from the
+    same seed, within 1e-4 * max|val| and 1e-3 of each leaf's max|final -
+    init| plus one float32 ulp of the leaf per step."""
+    import jax
+
+    from cape_tpu.core.config import CAPEConfig as JaxConfig
+    from cape_tpu.meshops.pyramid import build_pyramid
+    from cape_tpu.meshops.topology import vertices_per_edge
+    from cape_tpu.meshops.toy import icosphere
+    from cape_tpu.models.cape import CAPE as JaxCAPE
+    from cape_tpu.ops.sparse import build_graph_context
+    from cape_tpu.train.loop import Trainer as JaxTrainer
+    from cape_tpu_torch.core import prng
+    from cape_tpu_torch.core.bridge import _flatten
+
+    out = str(tmp_path / "run")
+    outs = _spawn(lambda rank, port: [__file__, "worker", "seeded", out, str(rank),
+                                      str(N_RANKS), str(port)])
+    recs = _rank_records(outs)
+    assert recs[0]["metrics"] == recs[1]["metrics"]
+    cfg, ctx, data = _setup("dp_seeded", **SEEDED)
+    ranks = [np.load(f"{out}.{r}.npz") for r in range(N_RANKS)]
+    n_steps = int(ranks[0]["step"])
+    assert n_steps == 6
+    for s in range(n_steps):
+        key = prng.fold_in(prng.PRNGKey(cfg.seed), s)
+        want = prng.normal(key, (cfg.batch_size, cfg.nz))
+        for f in ranks:
+            lo, hi = f["rows"]
+            np.testing.assert_array_equal(f["eps"][s], want[lo:hi], err_msg=f"step {s}")
+        jwant = np.asarray(jax.random.normal(jax.random.fold_in(jax.random.PRNGKey(cfg.seed), s),
+                                             (cfg.batch_size, cfg.nz)))
+        np.testing.assert_allclose(np.concatenate([f["eps"][s] for f in ranks]), jwant,
+                                   rtol=0, atol=1e-6)
+
+    verts, faces = icosphere(3)
+    jcfg = JaxConfig(**{f: getattr(cfg, f) for f in (
+        "name", "nf", "nz", "nz_cond", "nz_cond2", "use_res_block", "use_res_block_dec",
+        "affine", "reduce_dim", "batch_size", "num_epochs", "steps_per_dispatch",
+        "tensorboard", "seed")}, data_parallel=1)
+    jctx = build_graph_context(build_pyramid(verts, faces, jcfg.ds_factors),
+                               build_pyramid(verts, faces, [2, 2, 2, 2]),
+                               vertices_per_edge(faces, len(verts)), verts,
+                               padded=jcfg.padded_layout)
+    jtrainer = JaxTrainer(jcfg, JaxCAPE(jcfg), jctx, data, workdir=str(tmp_path / "jax"))
+    jval, _ = jtrainer.fit()
+    val = [m["val_recon"] for m in recs[0]["metrics"]]
+    np.testing.assert_allclose(val, jval, rtol=0, atol=1e-4 * np.abs(jval).max())
+    init = _flatten(JaxCAPE(jcfg).init_params(jax.random.PRNGKey(cfg.seed), jctx))
+    final = _flatten(jax.device_get(jtrainer.state.params))
+    for k, w in final.items():
+        w, scale = np.asarray(w), np.abs(np.asarray(w) - np.asarray(init[k])).max()
+        atol = 1e-3 * scale + n_steps * np.spacing(np.abs(w).max())
+        for f in ranks:
+            np.testing.assert_allclose(f[f"param/{k}"], w, rtol=0, atol=atol, err_msg=k)
 
 
 @pytest.mark.parametrize("mode", ["step", "trainer"])

@@ -1,12 +1,15 @@
 """The port's numpy copy of JAX's default PRNG (`cape_tpu_torch.core.prng`)
 against `jax.random` on the CPU: keys, fold_in and split bit for bit, the
-32-bit draws and uniforms bit for bit, normals within 1e-6 absolute, and
-categorical draws equal."""
+32-bit draws and uniforms bit for bit, float32 normals within 1e-6
+absolute, bfloat16 and float16 normals bit for bit (also folded over many
+data values and row by row), truncated normals within one float32 ulp,
+and categorical draws equal."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from cape_tpu.apps.inference import _sample_z_rows
 from cape_tpu_torch.core import prng
@@ -96,3 +99,69 @@ def test_normal_rows_match_the_jax_engine_sampler(seed):
     # a row's draw does not depend on how many rows are drawn
     np.testing.assert_array_equal(prng.normal_rows(seed, 4, 18), got[:4])
     assert prng.normal_rows(seed, 0, 18).shape == (0, 18)
+
+
+HALF = {"bfloat16": jnp.bfloat16, "float16": jnp.float16}
+
+
+@pytest.mark.parametrize("dtype", sorted(HALF))
+@pytest.mark.parametrize("shape", [(2, 8), (64, 64), (3, 5, 7), (32, 64)])
+@pytest.mark.parametrize("seed", [0, 7, 123, 2**32 - 1])
+def test_half_precision_normal_is_bit_equal(seed, shape, dtype):
+    """jax.random.normal in bfloat16 and float16 is another draw than the
+    float32 one rounded (8 and 16 random bits, each operation rounded to
+    the dtype); prng.normal reproduces it bit for bit under keys folded
+    with several data values, and its float32 array cast to the dtype in
+    torch is JAX's array."""
+    for data in (0, 3, 2**31 + 5):
+        key = prng.fold_in(prng.PRNGKey(seed), data)
+        want = np.asarray(jax.random.normal(jax.random.fold_in(_jkey(seed), data), shape,
+                                            HALF[dtype]))
+        got = prng.normal(key, shape, dtype)
+        assert got.dtype == np.float32 and got.shape == shape
+        np.testing.assert_array_equal(got, want.astype(np.float32))
+        cast = torch.from_numpy(got).to(getattr(torch, dtype))
+        np.testing.assert_array_equal(cast.float().numpy(), got)
+    # not the float32 draw rounded
+    f32 = prng.normal(prng.PRNGKey(seed), shape)
+    rounded = torch.from_numpy(f32).to(getattr(torch, dtype)).float().numpy()
+    assert (rounded != prng.normal(prng.PRNGKey(seed), shape, dtype)).mean() > 0.5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_folded_draw_is_jax_vmapped_fold_in(dtype):
+    """normal_folded(key, data, shape, dtype) is JAX's normal(fold_in(key,
+    d), shape, dtype) for each d (the Trainer's k steps of noise in one
+    call), and normal_rows in each dtype is the JAX engine's row-keyed
+    sampler in that dtype."""
+    jdt = {"float32": jnp.float32, **HALF}[dtype]
+    data = np.array([0, 1, 5, 17, 2**31 + 1])
+    got = prng.normal_folded(prng.PRNGKey(123), data, (4, 8), dtype)
+    want = np.stack([np.asarray(jax.random.normal(
+        jax.random.fold_in(jax.random.PRNGKey(123), int(d)), (4, 8), jdt)) for d in data])
+    assert got.shape == (5, 4, 8)
+    exact = dtype != "float32"
+    np.testing.assert_allclose(got, want.astype(np.float32), rtol=0, atol=0 if exact else 1e-6)
+    for i, d in enumerate(data):
+        np.testing.assert_array_equal(
+            got[i], prng.normal(prng.fold_in(prng.PRNGKey(123), int(d)), (4, 8), dtype))
+    zeros = jnp.zeros((9, 18), jdt)
+    rows = np.asarray(_sample_z_rows(np.uint32(7), np.arange(9, dtype=np.int32), zeros, zeros))
+    np.testing.assert_allclose(prng.normal_rows(7, 9, 18, dtype), rows.astype(np.float32),
+                               rtol=0, atol=0 if exact else 1e-6)
+    assert prng.normal_rows(7, 9, 18, getattr(torch, dtype)).shape == (9, 18)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 123])
+def test_truncated_normal_within_one_ulp(seed):
+    """jax.random.truncated_normal(key, -2, 2, shape), the conv weights'
+    initializer: within one float32 ulp of 2 (2.384e-7; erf_inv is within a
+    few ulps, as normal's), every value inside (-2, 2), and most values
+    equal."""
+    shape = (3, 64, 64)
+    want = np.asarray(jax.random.truncated_normal(_jkey(seed), -2.0, 2.0, shape))
+    got = prng.truncated_normal(prng.PRNGKey(seed), -2.0, 2.0, shape)
+    assert got.dtype == np.float32 and got.shape == shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=2.4e-7)
+    assert (got != want).mean() < 0.05
+    assert np.abs(got).max() < 2.0
