@@ -1,0 +1,12 @@
+"""idle_optimizer.train: the share of the profiled train stretch in which no
+kernel or copy ran on the device while the thread that drives the steps
+was inside the program's `train.optimizer` span: the device's idle intervals,
+as device_idle.train takes them, intersected with the span's intervals,
+over the traced window, in %. None where the stretch has no device events
+or no such span (a program without spans)."""
+
+from bench_port import spans
+
+
+def read(m: dict):
+    return spans.idle_share(m, "train.optimizer")

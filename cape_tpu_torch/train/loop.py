@@ -19,7 +19,8 @@ streams to its step and trains cfg.num_epochs more epochs, so a run
 stopped and resumed takes the steps an uninterrupted run takes.
 cfg.profile_steps > 0 captures whole chunks with torch.profiler, from the
 run's second chunk (its first if the run is one chunk) until that many
-steps are covered, as JAX's does (`<run>/profile/trace.json`).
+steps are covered, as JAX's does (`<run>/profile/trace.json`); the trace
+names each chunk's and each step's phases (`train.metrics.TRAIN_SPANS`).
 
 The random draws are JAX's (`core.prng`), so a run from seed s is the JAX
 package's run from seed s, given the parameters of init_params(PRNGKey(s))
@@ -80,7 +81,7 @@ from cape_tpu_torch.ops.sparse import GraphContext
 from cape_tpu_torch.parallel.mesh import DataParallel
 from cape_tpu_torch.tools.plot_metrics import plot_metrics
 from cape_tpu_torch.train import checkpoint as ckpt
-from cape_tpu_torch.train.metrics import MetricsLogger, profile_steps
+from cape_tpu_torch.train.metrics import MetricsLogger, profile_steps, span
 from cape_tpu_torch.train.optim import Optimizer
 from cape_tpu_torch.train.step import TrainState, eval_step, train_step
 
@@ -170,12 +171,13 @@ class Trainer:
         return {"disp": dev(disp), "pose": dev(pose), "clo": dev(clo)}
 
     def _gather(self, idx_g: np.ndarray, idx_d: np.ndarray) -> dict[str, torch.Tensor]:
-        ig = torch.from_numpy(idx_g).to(self.device)
-        idd = torch.from_numpy(idx_d).to(self.device)
-        out = {}
-        for k, v in self.train_data.items():
-            out[f"{k}_g"] = v.index_select(0, ig)
-            out[f"{k}_d"] = v.index_select(0, idd)
+        with span("train.gather"):
+            ig = torch.from_numpy(idx_g).to(self.device)
+            idd = torch.from_numpy(idx_d).to(self.device)
+            out = {}
+            for k, v in self.train_data.items():
+                out[f"{k}_g"] = v.index_select(0, ig)
+                out[f"{k}_d"] = v.index_select(0, idd)
         return out
 
     def run_steps(self, k: int, stream_g: BatchStream, stream_d: BatchStream) -> list[dict]:
@@ -186,17 +188,23 @@ class Trainer:
         takes its rows of the global batch and of the global noise, and the
         ranks' gradients are averaged. Returns each step's metrics (device
         tensors, this rank's own). Trainer.fit takes its steps here, as does
-        the lab's `step` and `trace` (tools.perf_lab)."""
+        the lab's `step` and `trace` (tools.perf_lab). Under a profiler the
+        noise draw is the span train.noise, each step train.step, holding
+        the step's train.gather and `train_step`'s phases
+        (`train.metrics.TRAIN_SPANS`)."""
         cfg = self.cfg
         lo, hi = self.rows
         reduce = None if self.dp.group is None else self.dp.all_reduce_mean
         step = self.state.step
-        eps = step_noise(cfg.seed, range(step, step + k), (cfg.batch_size, cfg.nz),
-                         self.model.dtype, self.device, slice(lo, hi))
+        with span("train.noise"):
+            eps = step_noise(cfg.seed, range(step, step + k), (cfg.batch_size, cfg.nz),
+                             self.model.dtype, self.device, slice(lo, hi))
         out = []
         for i in range(k):
-            batch = self._gather(stream_g.next_indices()[lo:hi], stream_d.next_indices()[lo:hi])
-            metrics, _ = train_step(self.state, self.ctx, batch, eps[i], reduce=reduce)
+            with span("train.step"):
+                batch = self._gather(stream_g.next_indices()[lo:hi],
+                                     stream_d.next_indices()[lo:hi])
+                metrics, _ = train_step(self.state, self.ctx, batch, eps[i], reduce=reduce)
             out.append(metrics)
         return out
 
@@ -330,8 +338,9 @@ class Trainer:
     def _screen(self, pending: list[tuple[int, torch.Tensor]]) -> None:
         """Fail fast, naming the step, on a non-finite loss: a NaN that keeps
         training poisons every later checkpoint."""
-        losses = self.dp.all_reduce_mean([torch.stack([v for _, v in pending])])[0]
-        losses = losses.cpu().numpy()
+        with span("train.screen"):
+            losses = self.dp.all_reduce_mean([torch.stack([v for _, v in pending])])[0]
+            losses = losses.cpu().numpy()
         bad = ~np.isfinite(losses).all(axis=1)
         if bad.any():
             i = int(np.argmax(bad))

@@ -30,6 +30,7 @@ from cape_tpu_torch import losses
 from cape_tpu_torch.core.config import CAPEConfig
 from cape_tpu_torch.models.cape import CAPE
 from cape_tpu_torch.ops.sparse import GraphContext
+from cape_tpu_torch.train.metrics import span
 from cape_tpu_torch.train.optim import Optimizer
 
 
@@ -97,19 +98,24 @@ def train_step(state: TrainState, ctx: GraphContext, batch: dict, eps,
     batch's gradient. (No model family normalises over the batch: group
     norm is per sample, and batch_norm, which would need statistics reduced
     across the ranks, is used by none.) The metrics stay the rank's own:
-    the caller reduces the ones it reads."""
+    the caller reduces the ones it reads. Its phases are the spans
+    train.forward, train.backward, train.reduce and train.optimizer
+    (`train.metrics.span`)."""
     model = state.model
     named = dict(model.named_parameters())
-    total, metrics = gan_losses(model, model.cfg, ctx, batch, eps)
-    grads = torch.autograd.grad(total, list(named.values()), allow_unused=True)
-    grads = {
-        n: torch.zeros_like(p) if g is None else g
-        for (n, p), g in zip(named.items(), grads)
-    }
+    with span("train.forward"):
+        total, metrics = gan_losses(model, model.cfg, ctx, batch, eps)
+    with span("train.backward"):
+        grads = torch.autograd.grad(total, list(named.values()), allow_unused=True)
+        grads = {
+            n: torch.zeros_like(p) if g is None else g
+            for (n, p), g in zip(named.items(), grads)
+        }
     if reduce is not None:
-        grads = reduce(grads)
-    updates = state.tx.update(grads)
-    with torch.no_grad():
+        with span("train.reduce"):
+            grads = reduce(grads)
+    with span("train.optimizer"), torch.no_grad():
+        updates = state.tx.update(grads)
         for n, p in named.items():
             p.add_(updates[n].to(p.dtype))
     state.step += 1
