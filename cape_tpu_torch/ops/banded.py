@@ -7,15 +7,17 @@ t * col_stride, so the apply is
 
     y_tiles = sum_k  blocks[k] @ shifted_view_k(x_padded)
 
-with static slices and batched matmuls. In the JAX package this apply is
-XLA code, so here it stays plain torch. The band-apply kernel
-(`ops.kernels.cheb_kernel.band_apply`) is reached only through the routing
-gate in `ops.cheb`, as in JAX.
+with static slices and batched matmuls (`apply_blocks`), the JAX package's
+XLA apply. On a CUDA tensor the apply is one launch of the band-gather
+kernel (`csrc/band_gather.cu`, through `ops.kernels.cheb_kernel.band_apply`)
+over the op's gather pack in place of apply_blocks' ~11 operators
+(`BandedMatvec`); CPU and meta tensors, and ops whose config keeps kernels
+off, take apply_blocks.
 
 The apply is a `torch.autograd.Function` whose backward applies the
-transpose, packed in the same banded form (`t_blocks`), as the JAX custom
-VJP does: autograd's own backward of the shifted einsum would build
-layout-transposed copies of every shifted view.
+transpose, packed in the same banded form (`t_blocks`, `t_pack`), as the
+JAX custom VJP does: autograd's own backward of the shifted einsum would
+build layout-transposed copies of every shifted view.
 
 Each op also carries the gather pack of its blocks and of its transpose
 (`gather_pack`): the band's non-zeros as a fixed-width list per output
@@ -32,6 +34,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
+
+from cape_tpu_torch.ops import kernels
 
 
 def apply_blocks(x, blocks, pad_left, pad_right, n_rows, padded=False):
@@ -56,20 +60,65 @@ def apply_blocks(x, blocks, pad_left, pad_right, n_rows, padded=False):
     return y if padded else y[..., :n_rows, :]
 
 
+# applies of BandedMatvec, forward and backward, that took the band-gather
+# kernel; the conv route's launches count in ops.kernels.cheb_kernel
+kernel_applies = 0
+
+# the dtypes the band-gather kernel takes (cheb_kernel._DTYPE_CODES)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def on_kernel(x: torch.Tensor, op: BandedOp) -> bool:
+    """Whether an apply of `op` to x takes the band-gather kernel: x is a
+    non-empty CUDA tensor of a dtype the kernel takes, the op carries its
+    gather packs, and it allows kernels (cfg.use_pallas) unless
+    CAPE_TPU_PALLAS overrides that either way (`ops.kernels.override`)."""
+    if x.device.type != "cuda" or x.dtype not in KERNEL_DTYPES or op.pack is None or not x.numel():
+        return False
+    env = kernels.override()
+    return op.allow_pallas if env is None else env
+
+
+def kernel_apply(x: torch.Tensor, blocks: torch.Tensor, pack: GatherPack, pad_left: int,
+                 rows_out: int) -> torch.Tensor:
+    """y = M x for x [..., rows, C] in one launch of the band-gather kernel
+    over `pack`, the gather pack of `blocks` at `pad_left`, keeping
+    rows_out rows. The launch goes through `cheb_kernel.band_apply`, looked
+    up at call time so that a wrapper put there (bench_port's
+    LaunchRecorder) sees it, with x as [B, rows, C]; it counts in
+    `kernel_applies`, the conv route's launches in cheb_kernel's own
+    counters."""
+    global kernel_applies
+    from cape_tpu_torch.ops.kernels import cheb_kernel
+
+    lead = x.shape[:-2]
+    x = x.reshape(-1, *x.shape[-2:]).contiguous()
+    y = cheb_kernel.band_apply(x, blocks, pad_left, rows_out, pack=pack)
+    kernel_applies += 1
+    return y.reshape(*lead, *y.shape[1:])
+
+
 class BandedMatvec(torch.autograd.Function):
-    """y = M x through `apply_blocks`; the backward is dx = M^T g with the
-    transpose packing. In the padded layout g's tail rows are zero wherever
-    the output feeds a banded op or a slice back to the natural layout
-    (both have zero-tail backward passes), as in JAX's `_banded_bwd`."""
+    """y = M x, on the band-gather kernel where `on_kernel` says so and
+    through `apply_blocks` elsewhere; the backward is dx = M^T g with the
+    transpose packing, routed the same way. In the padded layout g's tail
+    rows are zero wherever the output feeds a banded op or a slice back to
+    the natural layout (both have zero-tail backward passes), as in JAX's
+    `_banded_bwd`; the kernel reads no tail row (the packs hold no entry
+    there) and writes zero tail rows."""
 
     @staticmethod
     def forward(ctx, x, op):
         ctx.op = op
+        if on_kernel(x, op):
+            return kernel_apply(x, op.blocks, op.pack, op.pad_left, op.rows_out)
         return apply_blocks(x, op.blocks, op.pad_left, op.pad_right, op.n_rows, op.padded)
 
     @staticmethod
     def backward(ctx, g):
         op = ctx.op
+        if on_kernel(g, op):
+            return kernel_apply(g, op.t_blocks, op.t_pack, op.t_pad_left, op.rows_in), None
         dx = apply_blocks(g, op.t_blocks, op.t_pad_left, op.t_pad_right, op.n_cols, op.padded)
         return dx, None
 
@@ -211,8 +260,20 @@ class BandedOp:
         return self.t_blocks.shape[1] * self.row_block
 
     @property
+    def rows_out(self) -> int:
+        """Rows of y = M x: p_rows in the padded layout, n_rows in the
+        natural one."""
+        return self.p_rows if self.padded else self.n_rows
+
+    @property
+    def rows_in(self) -> int:
+        """Rows of x, and of the transpose's output: p_cols in the padded
+        layout, n_cols in the natural one."""
+        return self.p_cols if self.padded else self.n_cols
+
+    @property
     def pallas_eligible(self) -> bool:
-        """The band-apply kernel takes square levels with 128x128 blocks
+        """The conv kernel routes take square levels with 128x128 blocks
         (all rescaled Laplacians qualify)."""
         return self.n_rows == self.n_cols and self.row_block == 128 and self.col_block == 128
 

@@ -33,6 +33,9 @@ Counterparts of the entries of `cape_tpu/ops/pallas/cheb_kernel.py`:
     gathers L~x from there; tiled by `ring_plan`; the same plain backward.
   * `banded_apply_bm` (TPU kernel `banded_apply_bm`): y = M x for a banded M
     with any column block, batch-major, in the same band-gather kernel.
+  * the plain `BandedOp` applies (`ops.banded.BandedMatvec`, XLA code in
+    the JAX package) run `band_apply` too on CUDA, for any column block, in
+    both directions (`ops.banded.kernel_apply`).
 
 The band-apply wrappers and the fused conv take the gather pack of their
 blocks (`pack=`): a CUDA launch needs it, and the wrappers never build one.
@@ -49,14 +52,16 @@ from cape_tpu_torch.ops.banded import WINDOW_TILES, GatherPack, apply_blocks
 
 RB = 128
 
-# kernel launches of band_apply without an addend (the forward of
-# cheb2_banded_v3 and cheb2_banded_v2) and with one (the backward of
-# cheb2_banded_v3); of fused_cheb2 with a group of 1 (kernel 1's case) and
-# with a larger group (kernel 4's); of banded_apply_bm; of ring_cheb2 with
-# one row tile per block (kernel 5's case) and with two (kernel 6's). The
-# CPU/meta plain paths count in none of them. bf16_launches and f16_launches
-# count the band_apply launches (either direction) on bf16 and f16 tensors
-# again.
+# kernel launches of the conv route's band applies: the forward of
+# cheb2_banded_v3 and cheb2_banded_v2 and the backward of cheb2_banded_v3
+# (`_conv_launch` counts them at those call sites); of fused_cheb2 with a
+# group of 1 (kernel 1's case) and with a larger group (kernel 4's); of
+# banded_apply_bm; of ring_cheb2 with one row tile per block (kernel 5's
+# case) and with two (kernel 6's). The CPU/meta plain paths count in none
+# of them, and the plain BandedOp applies on band_apply count in
+# ops.banded.kernel_applies. bf16_launches and f16_launches count every
+# band_apply launch (either direction, the BandedOp applies too) on bf16
+# and f16 tensors.
 launches = 0
 bwd_launches = 0
 bf16_launches = 0
@@ -191,24 +196,25 @@ def band_apply(
     x: torch.Tensor, blocks: torch.Tensor, pad_left: int, rows_out: int,
     addend: torch.Tensor | None = None, pack: GatherPack | None = None,
 ) -> torch.Tensor:
-    """Band apply of x [B, rows_in, C] with blocks [S, T, 128, 128] of x's
-    dtype -> [B, rows_out, C], plus `addend` [B, rows_out, C] if given.
-    CUDA tensors launch the band-gather kernel over `pack`, the gather pack
-    of the blocks (required there); CPU and meta tensors take
-    band_apply_plain. A pack given is checked against the blocks on every
-    device. A launch with an addend counts in `bwd_launches` (only the
-    backward of cheb2_banded_v3 passes one), else in `launches`; on bf16
-    tensors, also in `bf16_launches`, on f16 tensors in `f16_launches`."""
-    global launches, bwd_launches, bf16_launches, f16_launches
+    """Band apply of x [B, rows_in, C] with blocks [S, T, 128, cb] (any
+    column block; the kernel reads the pack, not the blocks) -> [B,
+    rows_out, C], plus `addend` [B, rows_out, C] if given. CUDA tensors
+    launch the band-gather kernel over `pack`, the gather pack of the
+    blocks (required there); CPU and meta tensors take band_apply_plain. A
+    pack given is checked against the blocks on every device. A launch on
+    bf16 tensors counts in `bf16_launches`, on f16 tensors in
+    `f16_launches`; its callers count it by route (`_conv_launch`,
+    ops.banded.kernel_apply)."""
+    global bf16_launches, f16_launches
     if pack is not None or x.device.type not in ("cpu", "meta"):
         _check_pack("band_apply", pack, blocks, pad_left)
     if x.device.type in ("cpu", "meta"):
         return band_apply_plain(x, blocks, pad_left, rows_out, addend)
     _check_cuda("band_apply", x, addend=addend)
-    if x.dim() != 3 or blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
+    if x.dim() != 3 or blocks.dim() != 4 or blocks.shape[2] != RB:
         raise ValueError(
             f"band_apply: x {tuple(x.shape)} must be [B, rows, C] and blocks "
-            f"{tuple(blocks.shape)} [S, T, {RB}, {RB}]"
+            f"{tuple(blocks.shape)} [S, T, {RB}, cb]"
         )
     T = blocks.shape[1]
     B, _, C = x.shape
@@ -217,19 +223,29 @@ def band_apply(
     if addend is not None and tuple(addend.shape) != (B, rows_out, C):
         raise ValueError(f"band_apply: addend {tuple(addend.shape)} must be [{B}, {rows_out}, {C}]")
     y = _gather("band_apply", x, pack, rows_out, addend)
-    if addend is None:
-        launches += 1
-    else:
-        bwd_launches += 1
     bf16_launches += x.dtype == torch.bfloat16
     f16_launches += x.dtype == torch.float16
+    return y
+
+
+def _conv_launch(y: torch.Tensor, backward: bool = False) -> torch.Tensor:
+    """Count a band_apply of the conv route that launched (y on the card):
+    in `bwd_launches` for the backward of cheb2_banded_v3, else in
+    `launches`. Returns y."""
+    global launches, bwd_launches
+    if y.device.type not in ("cpu", "meta"):
+        if backward:
+            bwd_launches += 1
+        else:
+            launches += 1
     return y
 
 
 def _band_meta(band_op, x, natural_only: str | None = None) -> tuple[int, int, int]:
     """(pad_left, pad_right, rows_out) of the band apply of x [B, V, C]: JAX's
     `_band_meta`. Natural-layout ops keep n_rows. Persistent-padded ops take
-    x at the tile-padded row count P = T*128 and keep all P output rows;
+    x at the op's padded column count (`rows_in`, p_cols) and keep all
+    p_rows = T*128 output rows (`rows_out`; both T*128 for a square op);
     their stored pad_right is the natural layout's, so the right halo of the
     window is recomputed (the kernels mask rows past the input, so only the
     plain versions read it). `natural_only` names a caller that takes the
@@ -239,10 +255,10 @@ def _band_meta(band_op, x, natural_only: str | None = None) -> tuple[int, int, i
     if natural_only:
         raise ValueError(f"{natural_only} takes the natural layout only (the op is padded)")
     S, T, _, cb = band_op.blocks.shape
-    P = T * RB
+    P = band_op.rows_in
     if x.shape[1] != P:
         raise ValueError(f"padded op expects {P} rows, got {x.shape[1]}")
-    return band_op.pad_left, max((T + S - 1) * cb - band_op.pad_left - P, 0), P
+    return band_op.pad_left, max((T + S - 1) * cb - band_op.pad_left - P, 0), band_op.rows_out
 
 
 class _Cheb2V3(torch.autograd.Function):
@@ -258,7 +274,7 @@ class _Cheb2V3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w0, w1, blocks, pad_left, rows_out, pack):
-        lx = band_apply(x, blocks, pad_left, rows_out, pack=pack)
+        lx = _conv_launch(band_apply(x, blocks, pad_left, rows_out, pack=pack))
         ctx.save_for_backward(x, lx, w0, w1, blocks)
         ctx.band = (pad_left, rows_out)
         ctx.pack = pack
@@ -276,7 +292,8 @@ class _Cheb2V3(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gw0 = torch.matmul(g, w0.T).contiguous()
             gw1 = torch.matmul(g, w1.T).contiguous()
-            dx = band_apply(gw1, blocks, *ctx.band, addend=gw0, pack=ctx.pack)
+            dx = _conv_launch(band_apply(gw1, blocks, *ctx.band, addend=gw0, pack=ctx.pack),
+                              backward=True)
         return dx, dw0, dw1, None, None, None, None
 
 
@@ -610,7 +627,7 @@ class _Cheb2V2(torch.autograd.Function):
     def forward(ctx, x, w0, w1, blocks, meta, pack):
         ctx.save_for_backward(x, w0, w1, blocks)
         ctx.meta = meta
-        lx = band_apply(x, blocks, meta[0], meta[2], pack=pack)
+        lx = _conv_launch(band_apply(x, blocks, meta[0], meta[2], pack=pack))
         return torch.matmul(x, w0) + torch.matmul(lx, w1)
 
     @staticmethod

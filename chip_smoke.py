@@ -23,10 +23,10 @@ result line):
      torch.Generator seed 0, the test form of core.params that the golden
      files were written for) behind the port's HTTP server on 127.0.0.1:0;
      /health, /sample (n=40: two padded decode calls), /encode, /decode,
-     /reconstruct, /stats. The kernel must have run exactly 7 times per
-     decode and per encode device call.
+     /reconstruct, /stats. The conv route's kernel must have run exactly 7
+     times per decode and per encode device call.
   5. plain route: the same requests with use_pallas=False, held to the
-     kernel route; no kernel launch.
+     kernel route; no kernel launch, the plain BandedOp applies' included.
   6. golden: the batch-32 decode of tests/data/torch_golden_flagship.npz
      (written by the JAX package) held to 1e-4 * max|ref|.
   7. times: per-shape kernel against plain, and the batch-32 decode call on
@@ -36,7 +36,8 @@ result line):
   8. train step: two flagship GAN steps at batch 32 (f32, seed-0
      parameters, the synthetic batches and eps of
      tests/data/torch_golden_train.npz) on the kernel route, 17 forward
-     and 17 backward launches per step; the same steps on the plain route
+     and 17 backward launches per step and OP_APPLIES_PER_STEP plain
+     BandedOp applies on the kernel; the same steps on the plain route
      with none; both held to each other and to the JAX golden (metrics
      1e-4 relative, step-2 updates per leaf, see hold_updates).
   9. train time: both routes in turns, 6 rounds of 2 steps.
@@ -113,7 +114,10 @@ result line):
      both routes (3 rounds of 2 steps); the train mode through
      apps.main.run, as phase 10. (2) default_config.yaml (residual
      encoder, CMR decoder): encode (15 launches) and decode (7) held to the
-     golden, two GAN steps (25 + 25 launches a step) held to it. (3) The
+     golden, two GAN steps (25 + 25 launches a step) held to it, and the
+     same steps on the plain route, unnudged and with the parameters moved
+     by one ulp (NUDGE_SEEDS): its one-ulp spread enters the bound of
+     both routes' step-2 updates (hold_steps). (3) The
      flagship's knobs, one batch-32 decode each through InferenceEngine
      held within 1e-4 * max|ref| to tests/data/torch_golden_flagship.npz:
      fold_conditions=False (9 launches), fuse_decoder=True (0); and to
@@ -176,16 +180,17 @@ result line):
      32 (bf16: all on bf16 tensors), none at 16; finite metrics (the lab
      checks). serve (bf16, padded, batches 1, 16, 64): launches per engine
      decode call 9 at 64 (the gate routes C >= 32 there), none at 1 and 16.
-     trace at batch 32 and 16, bf16 and f32: band_gather_kernel named in the
-     profiler's trace with 17 + 17 a step at 32 (0 at 16), the counts
-     agreeing, device ms a step within the host window. chain --batch 32,
-     both dtypes: its arms within 5e-2 (the lab checks), band_apply
-     launched both ways. http (npz at 50 reps, json at 5) and concurrency
-     (16 threads, 3 s) against the flagship (f32, batch 32) served on
-     127.0.0.1:0, micro-batched and one request at a time: every request
-     answered (no failed request under load), 7 launches per encode and
-     decode device call, more than one decode request per device call when
-     micro-batched; the HTTP layer's share of a /sample n=32 against one
+     trace at batch 32 and 16, bf16 and f32: band_gather_kernel named in
+     the profiler's trace with 17 + 17 a step at 32 (0 at 16) beside the
+     plain BandedOp applies (kernel_applies), the counts agreeing, device
+     ms a step within the host window. chain --batch 32, both dtypes: its
+     arms within 5e-2 (the lab checks), band_apply launched both ways. http
+     (npz at 50 reps, json at 5) and concurrency (16 threads, 3 s) against
+     the flagship (f32, batch 32) served on 127.0.0.1:0, micro-batched and
+     one request at a time: every request answered (no failed request under
+     load), 7 launches per encode and decode device call, more than one
+     decode request per device call when micro-batched; the HTTP layer's
+     share of a /sample n=32 against one
      engine decode call. endurance --epochs 1 --n-train 512 --batch 32
      (bf16): finite final_val_recon, its checkpoint kept, 17 + 17 launches
      a step and 14 per validation batch. The native BVH (csrc/aabb.cpp,
@@ -242,6 +247,18 @@ result line):
      autoencode (32 rows): the noise of its sample_z bit-equal to
      normal_rows(seed, 32, nz, bfloat16), 7 bf16 launches per encode and
      decode call.
+ 24. op-applies (after phase 13): the plain BandedOp applies on the
+     band-gather kernel (ops.banded.kernel_apply), one of each operator
+     kind of the padded flagship context (OP_APPLIES: Laplacians at C = 3,
+     32 and a 2-D [V, 1], pools, unpools, the discriminator's, the edge
+     operator), forward and transpose, held to apply_blocks (f32, 1e-5 *
+     max|ref|) and timed against it in turns, with the bound of each;
+     their launches count in kernel_applies only.
+Launch counts (`read_counts`): `launches` and `bwd_launches` are the conv
+route's band_apply launches; `kernel_applies` the plain BandedOp applies
+on the same kernel, which take it wherever use_pallas puts the conv route
+(each `only` that allows them names them); `bf16_launches` and
+`f16_launches` count both (`half_launches`).
 Every timed record carries `bound_ms`, the least time the card could take
 for the same work (see `bound`). The per-case records go to
 build/chip_smoke_kernels.json. The last two lines are a JSON summary of
@@ -321,7 +338,24 @@ CONCAT_DECODE = [(896, 576), (896, 320), (1792, 320), (1792, 192), (3456, 192), 
 # each run the seven ON_PATH shapes, the three discriminator calls PRED
 TRAIN_APPLIES = {**{pc: 2 for pc in ON_PATH}, PRED: 3}
 FWD_PER_STEP = BWD_PER_STEP = sum(TRAIN_APPLIES.values())   # 17
+# the plain BandedOp applies of a flagship train step at batch 32 that take
+# the band-gather kernel (ops.banded.kernel_applies), forward and backward
+OP_APPLIES_PER_STEP = 120
+# phase 24's plain BandedOp applies, one of each operator kind of the
+# padded flagship context: (label, context field, index or None, batch,
+# channels); batch 0 is a 2-D [rows, C] input
+OP_APPLIES = [
+    ("Laplacian 6890 C=3", "lap", 0, 32, 3), ("Laplacian 6890 C=32", "lap", 0, 32, 32),
+    ("Laplacian 6890 [V, 1]", "lap", 0, 0, 1), ("pool 6890->3445", "down", 1, 32, 64),
+    ("pool 1723->862", "down", 5, 32, 256), ("unpool 3445->6890", "up", 1, 32, 64),
+    ("unpool 862->1723", "up", 5, 32, 256), ("disc Laplacian 431", "lap_d", 4, 32, 128),
+    ("disc pool 6890->3445", "down_d", 0, 32, 3), ("edge op 6890->20664", "edge_op", None, 32, 3),
+]
 FWD_PER_EVAL = 14   # encode + decode of one eval batch
+# phase 17: the seeds of the one-ulp nudges of default_config.yaml's
+# parameters on the plain route (nudge_params; the families golden's
+# JAX nudge draws from default_rng(3))
+NUDGE_SEEDS = (3, 4, 5, 6)
 # phase 18's bf16 kernel route against its plain route. They run the same
 # code but rows 2 and 2b, which round once where the plain apply rounds
 # each term, and cuBLAS's summation order: every metric within two bf16
@@ -377,27 +411,40 @@ def log(*a):
     print(*a, flush=True)
 
 
-# the launch counts of the kernel wrappers (cape_tpu_torch.ops.kernels.cheb_kernel)
+# the launch counts of the kernel wrappers (cape_tpu_torch.ops.kernels.cheb_kernel),
+# and `kernel_applies`, the plain BandedOp applies on the band-gather kernel
+# (cape_tpu_torch.ops.banded); bf16_launches and f16_launches count those too
 COUNTS = ("launches", "bwd_launches", "bf16_launches", "f16_launches", "fused1_launches",
           "fused_launches", "bm_launches", "ring_launches", "ring2_launches")
 
 
 def zero_counts() -> None:
+    from cape_tpu_torch.ops import banded
     from cape_tpu_torch.ops.kernels import cheb_kernel
 
     for k in COUNTS:
         setattr(cheb_kernel, k, 0)
+    banded.kernel_applies = 0
 
 
 def read_counts() -> dict:
+    from cape_tpu_torch.ops import banded
     from cape_tpu_torch.ops.kernels import cheb_kernel
 
-    return {k: getattr(cheb_kernel, k) for k in COUNTS}
+    return {**{k: getattr(cheb_kernel, k) for k in COUNTS},
+            "kernel_applies": banded.kernel_applies}
 
 
 def only(counts: dict, *names) -> bool:
-    """No kernel but `names` launched."""
+    """No kernel but `names` launched (`kernel_applies`, the plain BandedOp
+    applies, among them only where named)."""
     return not any(v for k, v in counts.items() if k not in names)
+
+
+def half_launches(counts: dict, conv: int) -> int:
+    """What bf16_launches (f16_launches) must read when every launch was
+    bf16 (f16): the conv route's `conv` and every plain apply's."""
+    return conv + counts.get("kernel_applies", 0)
 
 
 def device_phase() -> str:
@@ -973,6 +1020,54 @@ def ring_phase(ctx, smi):
     return records, counts
 
 
+def op_apply_phase(ctx, smi):
+    """Phase 24: the plain BandedOp applies on the band-gather kernel
+    (ops.banded.kernel_apply, BandedMatvec's CUDA route), one of each
+    operator kind (OP_APPLIES), forward and transpose: held to apply_blocks
+    (f32, 1e-5 * max|ref|), timed against it in turns (time_routes), with
+    the bound of each (apply_bound); every launch counted in
+    kernel_applies and in no conv-route counter. Returns the records."""
+    from cape_tpu_torch.ops.banded import apply_blocks, kernel_apply
+    from cape_tpu_torch.tools.perf_lab import time_routes
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    records = []
+    zero_counts()
+    for label, field, idx, B, C in OP_APPLIES:
+        op = getattr(ctx, field) if idx is None else getattr(ctx, field)[idx]
+        rec = {"op": label, "B": B, "C": C, "rows_in": op.rows_in, "rows_out": op.rows_out,
+               "cb": op.col_block, "W": op.pack.width, "t_W": op.t_pack.width}
+        sides = {"": (op.blocks, op.pack, op.pad_left, op.pad_right, op.n_rows,
+                      op.rows_in, op.rows_out),
+                 "t_": (op.t_blocks, op.t_pack, op.t_pad_left, op.t_pad_right, op.n_cols,
+                        op.rows_out, op.rows_in)}
+        for side, (blocks, pack, pad_left, pad_right, n_out, rows_in, rows_out) in sides.items():
+            x = torch.randn((rows_in, C) if B == 0 else (B, rows_in, C), generator=gen,
+                            device="cuda")
+            routes = {"kernel": functools.partial(kernel_apply, x, blocks, pack, pad_left,
+                                                  rows_out),
+                      "plain": functools.partial(apply_blocks, x, blocks, pad_left, pad_right,
+                                                 n_out, op.padded)}
+            ref = routes["plain"]()
+            rec[f"{side}max_abs_err"] = held_to(
+                f"op apply {label}{' transpose' if side else ''}, kernel vs apply_blocks",
+                routes["kernel"]().cpu().numpy(), ref.cpu().numpy(), rel=1e-5)
+            t = time_routes(routes)
+            rec[f"{side}ms"], rec[f"{side}plain_ms"] = t["kernel"], t["plain"]
+            b = apply_bound(blocks, max(B, 1), rows_in, rows_out, C, torch.float32)
+            rec[f"{side}bound_ms"], rec[f"{side}bound_by"] = b["bound_ms"], b["bound_by"]
+        log(f"op apply {label} [{smi}]: kernel {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
+            f"bound {rec['bound_ms']:.4f}), transpose {rec['t_ms']:.4f} ms (plain "
+            f"{rec['t_plain_ms']:.4f}, bound {rec['t_bound_ms']:.4f}); " + json.dumps(rec))
+        records.append(rec)
+    counts = read_counts()
+    log(f"op applies: counts {json.dumps(counts)}; phase {time.perf_counter() - t_phase:.2f} s")
+    if not counts["kernel_applies"] or not only(counts, "kernel_applies"):
+        raise AssertionError(f"op applies: counts {counts}, expected kernel_applies only")
+    return records
+
+
 def lab_phase(smi):
     """The kernel lab, the main path of kernels 1, 3 and 4: each LAB_RUNS
     entry through `perf_lab.main`, as `python -m cape_tpu_torch.tools.perf_lab`
@@ -1111,7 +1206,7 @@ def lab_rest_phase(model, ctx, smi):
     # parts: rows 2 and 2b; each part's output within 1e-4 of the plain route's
     parts, counts = run(["parts", "--batch", "32"])
     if not (counts["launches"] and counts["bwd_launches"]) or not only(
-            counts, "launches", "bwd_launches"):
+            counts, "launches", "kernel_applies", "bwd_launches"):
         raise AssertionError(f"parts --batch 32: {counts}: expected rows 2 and 2b only")
     for name, r in parts.items():
         if not r["max_rel_err"] <= 1e-4:
@@ -1125,8 +1220,9 @@ def lab_rest_phase(model, ctx, smi):
                                 "--k", str(LAB_STEP_K)])
             per = FWD_PER_STEP * steps if batch == 32 else 0
             want = {"launches": per, "bwd_launches": per,
-                    "bf16_launches": 2 * per if dtype == "bfloat16" else 0}
-            if any(counts[k] != v for k, v in want.items()) or not only(counts, *want):
+                    "bf16_launches": half_launches(counts, 2 * per) if dtype == "bfloat16" else 0}
+            if (any(counts[k] != v for k, v in want.items())
+                    or not only(counts, *want, "kernel_applies")):
                 raise AssertionError(f"step --batch {batch} {dtype}: {counts}, expected {want} "
                                      f"over {steps} steps")
             rec["step_ms"][f"{dtype} b{batch}"] = line["step_ms"]
@@ -1138,9 +1234,10 @@ def lab_rest_phase(model, ctx, smi):
         if line["launches_per_decode_call"] != want:
             raise AssertionError(f"serve batch {line['batch']}: "
                                  f"{line['launches_per_decode_call']} launches, expected {want}")
-    if not counts["launches"] or not only(counts, "launches", "bf16_launches"):
+    if not counts["launches"] or not only(counts, "launches", "kernel_applies", "bf16_launches"):
         raise AssertionError(f"serve: {counts}")
-    # trace: the band-gather kernel named, 17 + 17 a step at batch 32
+    # trace: the band-gather kernel named, 17 + 17 a step at batch 32 and the
+    # plain BandedOp applies
     trace_dir = os.path.join(ROOT, "build", "chip_smoke_traces")
     rec["trace"] = {}
     for batch, dtype in ((32, "bfloat16"), (32, "float32"), (16, "float32"), (16, "bfloat16")):
@@ -1149,10 +1246,12 @@ def lab_rest_phase(model, ctx, smi):
         n_steps = perf_lab.TRACE_WARMUP + 2 * perf_lab.TRACE_STEPS   # untraced, then traced
         per = FWD_PER_STEP if batch == 32 else 0
         named = att["family_counts"].get("band_gather_kernel", 0)
-        if (named != 2 * per or counts["launches"] != per * n_steps
+        applies = counts["kernel_applies"] / n_steps   # the plain BandedOp applies
+        if (named != 2 * per + applies or counts["launches"] != per * n_steps
                 or counts["bwd_launches"] != per * n_steps):
             raise AssertionError(f"trace --batch {batch} {dtype}: band_gather_kernel {named} a "
-                                 f"step, counts {counts}; expected {per} + {per} a step")
+                                 f"step, counts {counts}; expected {per} + {per} a step and "
+                                 f"{applies} op applies")
         if not att["device_ms_per_step"] <= att["wall_ms_per_step"]:
             raise AssertionError(f"trace: device {att['device_ms_per_step']} ms a step over the "
                                  f"wall's {att['wall_ms_per_step']}")
@@ -1361,10 +1460,46 @@ def check_fingerprint(name, model, golden) -> None:
         raise AssertionError(f"{name}: parameters from seed 0 differ from the golden's")
 
 
-def gan_steps(cfg, c, batches, eps, spe, golden, dtypes: dict | None = None):
+def nudge_params(model, seed: int) -> None:
+    """Move every parameter by about one float32 ulp, as
+    tests/make_torch_golden.py moves JAX's for `update_spread`: p * (1 +
+    2^-24 * default_rng(seed) normal draws), in the order of the sorted
+    parameter names."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for _, p in sorted(model.named_parameters()):
+            a = p.detach().cpu().double().numpy()
+            p.copy_(torch.from_numpy(a * (1 + 2.0**-24 * rng.standard_normal(a.shape))))
+
+
+def update_spread(ref: dict, other: dict, whole) -> float:
+    """How far the updates `other` are from `ref` by hold_updates'
+    measures, relative to each leaf's max|ref|: the error of max|.|, of the
+    sum of squares (over twice it), of the sum (over sqrt(n * sum of
+    squares)) and, for a leaf named in `whole`, of its elements once the
+    ties hold_updates lets through are set aside. The largest over the
+    leaves (tests/make_torch_golden.py's update_spread)."""
+    worst = 0.0
+    for k, u in ref.items():
+        u, v = u.astype(np.float64), other[k].astype(np.float64)
+        r_max, r_sq = np.abs(u).max(), np.square(u).sum()
+        if r_max == 0:
+            continue
+        errs = [abs(np.abs(v).max() - r_max) / r_max, abs(np.square(v).sum() - r_sq) / (2 * r_sq),
+                abs(v.sum() - u.sum()) / np.sqrt(u.size * r_sq)]
+        if k in whole:
+            ties = max(4, u.size // 10_000)
+            errs.append(np.sort((np.abs(v - u) / r_max).ravel())[-ties - 1])
+        worst = max(worst, *errs)
+    return float(worst)
+
+
+def gan_steps(cfg, c, batches, eps, spe, golden, dtypes: dict | None = None,
+              nudge: int | None = None):
     """GAN steps of a fresh seed-0 model on context c, one per batch and eps,
-    its parameters checked against `golden`'s fingerprint. Returns (train
-    state, the golden's metrics per step, the last step's updates as numpy,
+    its parameters checked against `golden`'s fingerprint and then, given
+    `nudge`, moved by one ulp (nudge_params). Returns (train state, the
+    golden's metrics per step, the last step's updates as numpy,
     band_apply (forward, backward) launches per step); fills `dtypes`, if
     given, with each metric's dtype name."""
     from cape_tpu_torch.models.cape import CAPE
@@ -1374,6 +1509,8 @@ def gan_steps(cfg, c, batches, eps, spe, golden, dtypes: dict | None = None):
 
     model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), c)
     check_fingerprint(cfg.name, model, golden)
+    if nudge is not None:
+        nudge_params(model, nudge)
     state = TrainState(model.to("cuda"), Optimizer(cfg, spe))
     names = [str(k) for k in golden["metric_names"]]
     metrics, counts = [], []
@@ -1434,12 +1571,17 @@ def train_phase(cfg, ctx, ctx_plain, smi):
     batches, spe = golden_batches(golden, ctx.perm0)
     runs = {}
     for route, c in (("kernel", ctx), ("plain", ctx_plain)):
+        applies = read_counts()["kernel_applies"]
         state, metrics, updates, counts = gan_steps(cfg, c, batches, eps, spe, golden)
+        applies = read_counts()["kernel_applies"] - applies
         log(f"train step, {route} route: band_apply launches (forward, backward) per step "
-            f"{counts}; step 1 " + " ".join(f"{k}={v:.6g}" for k, v in metrics[0].items()))
+            f"{counts}, plain BandedOp applies on the kernel in the 2 steps {applies}; step 1 "
+            + " ".join(f"{k}={v:.6g}" for k, v in metrics[0].items()))
         want = [(FWD_PER_STEP, BWD_PER_STEP)] * 2 if route == "kernel" else [(0, 0)] * 2
-        if counts != want:
-            raise AssertionError(f"{route} route: launches {counts}, expected {want}")
+        want_applies = 2 * OP_APPLIES_PER_STEP if route == "kernel" else 0
+        if counts != want or applies != want_applies:
+            raise AssertionError(f"{route} route: launches {counts} and {applies} op applies, "
+                                 f"expected {want} and {want_applies}")
         runs[route] = (state, c, metrics, updates)
 
     kernel, plain = runs["kernel"], runs["plain"]
@@ -1502,7 +1644,8 @@ def run_phase(cfg, golden=None):
             f"{evals} eval batches, DemoSuite device calls {calls}, band_apply launches "
             f"(forward, backward) {counts}; all counts {json.dumps(after)}; test_model "
             + json.dumps(result.test))
-        if steps != 2 or counts != want or not only(after, "launches", "bwd_launches"):
+        if (steps != 2 or counts != want
+                or not only(after, "launches", "kernel_applies", "bwd_launches")):
             raise AssertionError(f"run(): {steps} steps, launches {counts}, expected {want}")
         if not all(math.isfinite(v) for v in result.test.values()):
             raise AssertionError(f"run(): test_model {result.test}")
@@ -1614,7 +1757,7 @@ def microbatch_phase(model, ctx, smi):
         if not mb["decode_calls"] < mb["decode_requests"] == 80:
             raise AssertionError(f"the decode batcher did not coalesce: {mb}")
         if (counts["launches"] != 7 * (calls["encode"] + calls["decode"])
-                or not only(counts, "launches")):
+                or not only(counts, "launches", "kernel_applies")):
             raise AssertionError(f"{counts} for {calls}: expected 7 band_apply launches per "
                                  "encode/decode device call and no other kernel")
         if calls["decode"] != mb["decode_calls"] or calls["encode"] != mb["encode_calls"]:
@@ -1726,7 +1869,7 @@ def demo_phase(smi):
                 f"device calls {calls}, band_apply launches {counts['launches']} "
                 f"({per_call:g} per encode/decode call); all counts {json.dumps(counts)}")
             if (counts["launches"] != 7 * (calls["encode"] + calls["decode"])
-                    or not only(counts, "launches")):
+                    or not only(counts, "launches", "kernel_applies")):
                 raise AssertionError(f"--mode {mode}: {counts} for {calls}")
             launches += counts["launches"]
             results[mode] = result
@@ -1783,7 +1926,7 @@ def served_launches(name, engine, counts, per_call: int) -> int:
     want = per_call * (calls["encode"] + calls["decode"])
     log(f"{name}: device calls {calls}, band_apply launches {counts['launches']} "
         f"(expected {want}); all counts {json.dumps(counts)}")
-    if counts["launches"] != want or not only(counts, "launches"):
+    if counts["launches"] != want or not only(counts, "launches", "kernel_applies"):
         raise AssertionError(f"{name}: {counts} for {calls}")
     return counts["launches"]
 
@@ -1860,21 +2003,23 @@ def golden_meshes(golden) -> np.ndarray:
     return x
 
 
-def hold_steps(name, runs_metrics, updates, golden) -> None:
+def hold_steps(name, runs_metrics, updates, golden, port_spread: float = 0.0) -> None:
     """Two steps' metrics (1e-4 relative) and the step-2 updates
     (hold_updates) against a families golden. The updates' bound is the
-    larger of 1e-3 and twice the golden's `update_spread`: how far JAX's
-    own updates move when its parameters move by about one float32 ulp
-    (tests/make_torch_golden.py). Where the step is that sensitive to
+    larger of 1e-3 and twice the larger one-ulp spread: the golden's
+    `update_spread`, how far JAX's own updates move when its parameters
+    move by about one float32 ulp (tests/make_torch_golden.py, one draw),
+    and `port_spread`, the largest of the port's own over several draws
+    where the caller measured it. Where the step is that sensitive to
     rounding, no f32 implementation can come closer."""
     names = [str(k) for k in golden["metric_names"]]
     keys = [str(k) for k in golden["param_keys"]]
     whole = {k[len("update/"):]: golden[k] for k in golden if k.startswith("update/")}
     for i, m in enumerate(runs_metrics):
         held_metrics(f"{name} step {i + 1} vs JAX golden", m, dict(zip(names, golden["metrics"][i])))
-    rel = max(1e-3, 2 * float(golden["update_spread"]))
-    log(f"{name}: JAX's one-ulp update spread {float(golden['update_spread']):.3e}, "
-        f"bound {rel:.3e}")
+    rel = max(1e-3, 2 * max(float(golden["update_spread"]), port_spread))
+    log(f"{name}: JAX's one-ulp update spread {float(golden['update_spread']):.3e}, the "
+        f"port's {port_spread:.3e}, bound {rel:.3e}")
     hold_updates(f"{name} step-2 updates vs JAX golden", updates, keys, golden["update_summary"],
                  whole, rel=rel)
 
@@ -1915,7 +2060,8 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
         want = {"kernel": [(FWD_PER_STEP, BWD_PER_STEP)] * 2, "plain": [(0, 0)] * 2}.get(route)
         if want is not None and counts != want:
             raise AssertionError(f"CMR {route} steps: launches {counts}, expected {want}")
-        if not only(total, "launches", "bwd_launches"):
+        allowed = () if route == "plain" else ("launches", "bwd_launches", "kernel_applies")
+        if not only(total, *allowed):
             raise AssertionError(f"CMR {route} steps launched {total}")
         if route == "remat":
             # the checkpointed blocks' forwards run again in the backward pass
@@ -1945,7 +2091,7 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
         log(f"batch-32 CMR preset train step, {route} route [{smi}]: {v:.3f} ms "
             f"(CUDA events, routes in turns, median of 3 rounds of 2 steps)")
     times["cmr_step_ms"] = t
-    del runs, ctx_plain
+    del runs
     # the train entry point a user calls (apps.main.run, as phase 10)
     run_fwd, run_bwd = run_phase(cfg, golden)
     fwd += run_fwd
@@ -1970,7 +2116,8 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
         counts = read_counts()
         calls = dict(engine.calls)
         log(f"default_config.yaml {stage}: device calls {calls}; all counts {json.dumps(counts)}")
-        if counts["launches"] != per_call * calls[stage] or not only(counts, "launches"):
+        if (counts["launches"] != per_call * calls[stage]
+                or not only(counts, "launches", "kernel_applies")):
             raise AssertionError(f"default_config.yaml {stage}: {counts} for {calls}")
         fwd += counts["launches"]
     held_to("default_config.yaml vs JAX golden (encode z_mean)", z_mean, golden["z_mean"])
@@ -1979,18 +2126,34 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
     held_to("default_config.yaml vs JAX golden (batch-32 decode)", disp[: len(golden["disp"])],
             golden["disp"])
     batches, spe = golden_batches(golden, ctx.perm0)
+    eps = torch.from_numpy(golden["eps"]).cuda()
     zero_counts()
-    _, metrics, updates, counts = gan_steps(dcfg, ctx, batches,
-                                            torch.from_numpy(golden["eps"]).cuda(), spe, golden)
+    _, metrics, updates, counts = gan_steps(dcfg, ctx, batches, eps, spe, golden)
     total = read_counts()
     log(f"default_config.yaml train steps: band_apply launches (forward, backward) per step "
         f"{counts}; all counts {json.dumps(total)}")
-    if counts != [(25, 25)] * 2 or not only(total, "launches", "bwd_launches"):
+    if counts != [(25, 25)] * 2 or not only(total, "launches", "kernel_applies", "bwd_launches"):
         raise AssertionError(f"default_config.yaml steps: launches {counts}, expected 25 + 25")
     fwd += total["launches"]
     bwd += total["bwd_launches"]
-    hold_steps("default_config.yaml", metrics, updates, golden)
-    del engine, model, ctx
+    # the plain route, and its one-ulp spread: step 2's generator gradient
+    # is what is left of a step-1 gradient 5e4 times larger (losses 2.6e10,
+    # KL 3.2e13 from seed-0 parameters), so its norm, and through the clip
+    # every generator update, moves by up to ~2% with the rounding
+    zero_counts()
+    _, plain_metrics, plain, _ = gan_steps(dcfg, ctx_plain, batches, eps, spe, golden)
+    nudged = [gan_steps(dcfg, ctx_plain, batches, eps, spe, golden, nudge=s)[2]
+              for s in NUDGE_SEEDS]
+    if any(read_counts().values()):
+        raise AssertionError(f"default_config.yaml plain route launched {read_counts()}")
+    whole = {k[len("update/"):] for k in golden if k.startswith("update/")}
+    spreads = [update_spread(plain, u, whole) for u in nudged]
+    log(f"default_config.yaml, plain route: one-ulp update spreads "
+        f"{dict(zip(NUDGE_SEEDS, (f'{v:.3e}' for v in spreads)))} (nudge seeds); kernel route "
+        f"vs plain route {update_spread(plain, updates, whole):.3e}")
+    for route, m, u in (("kernel", metrics, updates), ("plain", plain_metrics, plain)):
+        hold_steps(f"default_config.yaml, {route} route", m, u, golden, port_spread=max(spreads))
+    del engine, model, ctx, ctx_plain
 
     # ---- 3. the flagship's knobs, each held to the flagship golden; the
     # ELL and dense modes keep the natural vertex order, in which fc1's
@@ -2126,8 +2289,8 @@ def resume_phase(cfg, smi) -> tuple[dict, dict]:
             log(f"resume, {label} run(): {time.perf_counter() - t0:.2f} s, {steps} steps to step "
                 f"{result.trainer.state.step}, DemoSuite calls {calls}; counts {json.dumps(c)}")
             if ((c["launches"], c["bwd_launches"]) != want
-                    or c["bf16_launches"] != c["launches"] + c["bwd_launches"]
-                    or not only(c, "launches", "bwd_launches", "bf16_launches")):
+                    or c["bf16_launches"] != half_launches(c, c["launches"] + c["bwd_launches"])
+                    or not only(c, "launches", "kernel_applies", "bwd_launches", "bf16_launches")):
                 raise AssertionError(f"resume {label}: counts {c}, expected {want}, all bf16")
         whole, split = trainers["whole"], trainers["resumed"]
         a, b = latest_checkpoint(whole.ckpt_dir), latest_checkpoint(split.ckpt_dir)
@@ -2227,10 +2390,11 @@ def train_prod_phase(cfg, ctx, smi):
             f"{json.dumps(total)}; steps' peak memory {peak_mb:.3f} MiB above the "
             f"{mem0 / 2**20:.3f} allocated before, optimizer state {state_mb:.3f} MiB "
             f"({sorted({_name(t.dtype) for t in moments})})")
-        if counts != [per_step] * 2 or total["bf16_launches"] != 2 * sum(per_step):
+        if counts != [per_step] * 2 or total["bf16_launches"] != half_launches(total,
+                                                                               2 * sum(per_step)):
             raise AssertionError(f"{label}: launches {counts} ({total}), expected {per_step} "
                                  "a step, all bf16")
-        if not only(total, "launches", "bwd_launches", "bf16_launches"):
+        if not only(total, "launches", "kernel_applies", "bwd_launches", "bf16_launches"):
             raise AssertionError(f"{label} launched {total}")
         fwd += total["launches"]
         bwd += total["bwd_launches"]
@@ -2603,8 +2767,9 @@ def f16_flagship_phase(cfg, ctx, model, smi):
     disp = engine.decode(z_total, y, y2)
     decode_counts = read_counts()
     log(f"f16 decode: device calls {engine.calls}; counts {json.dumps(decode_counts)}")
-    if (decode_counts["launches"] != 7 or decode_counts["f16_launches"] != 7
-            or not only(decode_counts, "launches", "f16_launches")):
+    if (decode_counts["launches"] != 7
+            or decode_counts["f16_launches"] != half_launches(decode_counts, 7)
+            or not only(decode_counts, "launches", "kernel_applies", "f16_launches")):
         raise AssertionError(f"f16 decode: counts {decode_counts}, expected 7 f16 launches")
     check_mesh("f16 decode", disp, 32)
     ref = gold["decode:disp"]
@@ -2626,8 +2791,8 @@ def f16_flagship_phase(cfg, ctx, model, smi):
     log(f"f16 steps: band_apply launches (forward, backward) per step {counts}; all counts "
         f"{json.dumps(total)}")
     if (counts != [(FWD_PER_STEP, BWD_PER_STEP)] * 2
-            or total["f16_launches"] != 2 * (FWD_PER_STEP + BWD_PER_STEP)
-            or not only(total, "launches", "bwd_launches", "f16_launches")):
+            or total["f16_launches"] != half_launches(total, 2 * (FWD_PER_STEP + BWD_PER_STEP))
+            or not only(total, "launches", "kernel_applies", "bwd_launches", "f16_launches")):
         raise AssertionError(f"f16 steps: launches {counts} ({total}), expected 17 + 17 a "
                              "step, all f16")
     hold_bf16("f16 b32 kernel", metrics, dtypes, updates, golden, what="JAX f16 golden")
@@ -2823,7 +2988,7 @@ def dp_train_phase(cfg, ctx, smi):
         log(f"DP rank {r} of {DP_RANKS} (Gloo, one card), 2 steps at {DP_BATCH // DP_RANKS} rows: "
             f"counts {json.dumps(c)}")
         if ((c["launches"], c["bwd_launches"]) != (2 * FWD_PER_STEP, 2 * BWD_PER_STEP)
-                or not only(c, "launches", "bwd_launches")):
+                or not only(c, "launches", "kernel_applies", "bwd_launches")):
             raise AssertionError(f"DP rank {r}: counts {c}, expected 17 + 17 a step")
         fwd += c["launches"]
         bwd += c["bwd_launches"]
@@ -2903,7 +3068,7 @@ def nccl_phase(cfg, ctx, mesh: bool = False):
         raise AssertionError(f"{name}: the Trainer did not run")
     if ((counts["launches"], counts["bwd_launches"]) != (FWD_PER_STEP + FWD_PER_EVAL,
                                                          BWD_PER_STEP)
-            or not only(counts, "launches", "bwd_launches")):
+            or not only(counts, "launches", "kernel_applies", "bwd_launches")):
         raise AssertionError(f"{name}: counts {counts}")
     return counts["launches"], counts["bwd_launches"]
 
@@ -2933,7 +3098,8 @@ def dp_engine_phase(model, ctx):
     counts = read_counts()
     log(f"DP engine over [cuda:0, cuda:0]: device calls {engine.calls}; counts "
         f"{json.dumps(counts)}")
-    if engine.calls["decode"] != 2 or counts["launches"] != 14 or not only(counts, "launches"):
+    if (engine.calls["decode"] != 2 or counts["launches"] != 14
+            or not only(counts, "launches", "kernel_applies")):
         raise AssertionError(f"DP engine: calls {engine.calls}, counts {counts}")
     check_mesh("DP engine decode", disp, 64)
     held_to("DP engine (2 x 32 rows) vs the single-device engine (64 rows)", disp, ref, rel=1e-5)
@@ -3153,7 +3319,7 @@ def tp_mesh_run(dp: int, tp: int, inputs: str, params: dict, cfg, ref, smi) -> d
                 raise AssertionError(f"{name} rank {r} step {step + 1}: v3 convs {got}, the gate "
                                      f"gives {want}")
             if (c["launches"], c["bwd_launches"]) != (len(want), len(want)) or not only(
-                    c, "launches", "bwd_launches"):
+                    c, "launches", "kernel_applies", "bwd_launches"):
                 raise AssertionError(f"{name} rank {r} step {step + 1}: counts {c}, expected "
                                      f"{len(want)} + {len(want)}")
             fwd += c["launches"]
@@ -3298,7 +3464,8 @@ def random_phase(cfg, ctx, smi) -> tuple[int, int, dict]:
                                                        dtype)).to(tdt)
             got = torch.stack([e.cpu() for e in seen]) if seen else None
             exp = (FWD_PER_STEP * steps + FWD_PER_EVAL, BWD_PER_STEP * steps)
-            ok_half = dtype == "float32" or counts["bf16_launches"] == sum(exp)
+            ok_half = dtype == "float32" or counts["bf16_launches"] == half_launches(counts,
+                                                                                     sum(exp))
             log(f"random (b) Trainer.fit {dtype}: {steps} steps and one val batch in "
                 f"{fit_s:.2f} s [{smi}], val recon {val}; eps of {len(seen)} steps "
                 f"{'bit-equal' if got is not None and torch.equal(got, want) else 'NOT equal'}"
@@ -3306,7 +3473,8 @@ def random_phase(cfg, ctx, smi) -> tuple[int, int, dict]:
             if steps != 2 or got is None or got.dtype != tdt or not torch.equal(got, want):
                 raise AssertionError(f"random fit {dtype}: the steps' eps are not JAX's")
             if ((counts["launches"], counts["bwd_launches"]) != exp or not ok_half
-                    or not only(counts, "launches", "bwd_launches", "bf16_launches")):
+                    or not only(counts, "launches", "kernel_applies", "bwd_launches",
+                                "bf16_launches")):
                 raise AssertionError(f"random fit {dtype}: counts {counts}, expected {exp}")
             if not all(math.isfinite(v) for v in val):
                 raise AssertionError(f"random fit {dtype}: val recon {val}")
@@ -3339,8 +3507,9 @@ def random_phase(cfg, ctx, smi) -> tuple[int, int, dict]:
     n_launch = 7 * (calls["encode"] + calls["decode"])
     if not equal or calls["sample"] != 1:
         raise AssertionError("random: the engine's sampled eps are not JAX's bf16 draw")
-    if (counts["launches"] != n_launch or counts["bf16_launches"] != n_launch
-            or not only(counts, "launches", "bf16_launches")):
+    if (counts["launches"] != n_launch
+            or counts["bf16_launches"] != half_launches(counts, n_launch)
+            or not only(counts, "launches", "kernel_applies", "bf16_launches")):
         raise AssertionError(f"random autoencode: counts {counts}, expected {n_launch}")
     check_mesh("bf16 sampled autoencode", out, 32)
     fwd += counts["launches"]
@@ -3356,7 +3525,6 @@ def main():
     from cape_tpu_torch.apps.main import build_context
     from cape_tpu_torch.core.config import load_config
     from cape_tpu_torch.models.cape import CAPE
-    from cape_tpu_torch.ops.kernels import cheb_kernel
     from cape_tpu_torch.tools.perf_lab import time_routes
 
     build_phase()
@@ -3381,6 +3549,7 @@ def main():
     fused_records = fused_phase(ctx, smi)
     bm_records = bm_phase(ctx, smi)
     ring_records, ring_counts = ring_phase(ctx, smi)
+    op_records = op_apply_phase(ctx, smi)
 
     model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
     n_params = sum(p.numel() for p in model.parameters())
@@ -3410,17 +3579,18 @@ def main():
         raise AssertionError(f"/health: {health}")
     if calls["decode"] != 4 or calls["encode"] != 2:
         raise AssertionError(f"expected 4 decode and 2 encode device calls, got {calls}")
-    if launches != 7 * (calls["decode"] + calls["encode"]) or not only(serve_counts, "launches"):
+    if (launches != 7 * (calls["decode"] + calls["encode"])
+            or not only(serve_counts, "launches", "kernel_applies")):
         raise AssertionError(f"{serve_counts} launches for {calls}: expected 7 band_apply per "
                              "decode/encode call and no other kernel")
 
     # ---- the plain route on the same requests
     engine_plain = InferenceEngine(model, ctx_plain, cfg.batch_size)
     httpd, thread, _, client = start_server(engine_plain)
-    before = cheb_kernel.launches
+    before = read_counts()
     plain = requests(client, pose, clo)
     stop_server(httpd, thread)
-    if cheb_kernel.launches != before:
+    if read_counts() != before:
         raise AssertionError("the use_pallas=False route launched the kernel")
     for name in ("sample", "decode", "reconstruct"):
         held_to(f"kernel route vs plain route /{name}", served[name]["disp"], plain[name]["disp"])
@@ -3475,7 +3645,7 @@ def main():
                    "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times},
                    "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records},
                    "artifact": artifact_rec, "lab_rest": rest_rec, "f16_dp": f16_dp_rec,
-                   "mesh2d": tp_rec, "random": rand_rec}, f)
+                   "mesh2d": tp_rec, "random": rand_rec, "op_applies": op_records}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
