@@ -10,6 +10,12 @@ identity operator counts nothing. Backward counts the gradients the step
 needs: a trainable layer's weight gradient (its projections again), and
 its input gradient (projections and applies again) unless nothing upstream
 needs it. Norms, activations and losses' elementwise work are left out.
+
+The count is the published model's: conditions on the encoder widen its
+first layer's input by their channels at every vertex, and their input
+gradient is counted (the condition nets train through it), however the
+program folds them; a residual encoder block counts both its convs, the
+1x1 projection of its skip where the widths differ, and its pool.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from bench_port.reference.model import _cond_hidden, channels
 class Layer:
     proj: float          # operations of the dense products (weights)
     apply: float = 0.0   # operations of the sparse applies
+    data_in: bool = False  # reads the step's data, whose gradient nothing needs
 
     def forward(self) -> float:
         return self.proj + self.apply
@@ -68,15 +75,36 @@ class Counter:
 
     def encoder(self, B) -> list[Layer]:
         s, F = self.s, self.F
-        out, c = [], s["nn_input_channel"]
+        out, c = [], s["nn_input_channel"] + self._enc_cond()
         for i, f in enumerate(F):
-            out += [self.conv(B, self.sizes[i], c, f, s["K"], self.nnz_lap[i]),
-                    self.apply(B, self.nnz_down[i], f)]
+            V, nnz = self.sizes[i], self.nnz_lap[i]
+            out.append(dataclasses.replace(self.conv(B, V, c, f, s["K"], nnz), data_in=i == 0))
+            if s["use_res_block"]:
+                out.append(self.conv(B, V, f, f, s["K"], nnz))
+                if c != f:
+                    out.append(dataclasses.replace(self.dense(B * V, c, f), data_in=i == 0))
+            out.append(self.apply(B, self.nnz_down[i], f))
             c = f
         red = s["reduce_dim"]
         flat = self.sizes[-1] * red
         return out + [self.dense(B * self.sizes[-1], F[-1], red),
                       self.dense(B, flat, s["nz"]), self.dense(B, flat, s["nz"])]
+
+    def _enc_cond(self) -> int:
+        """Condition channels at every vertex of the encoder's input."""
+        return self.s["nz_cond"] + self.s["nz_cond2"] if self.s["cond_encoder"] else 0
+
+    def encoder_cond_grad(self, B) -> list[Layer]:
+        """The input gradient of the encoder's condition channels: the
+        first block's layers that read its input, on those channels."""
+        s, f, nc = self.s, self.F[0], self._enc_cond()
+        if not nc:
+            return []
+        V = self.sizes[0]
+        out = [self.conv(B, V, nc, f, s["K"], self.nnz_lap[0])]
+        if s["use_res_block"] and s["nn_input_channel"] + nc != f:
+            out.append(self.dense(B * V, nc, f))
+        return out
 
     def decoder(self, B) -> list[Layer]:
         s, F = self.s, self.F
@@ -121,14 +149,15 @@ class Counter:
         for i, layer in enumerate(layers):
             if trainable:
                 total += layer.proj
-            if i > 0 or first_input_grad:
+            if (i > 0 or first_input_grad) and not layer.data_in:
                 total += layer.forward()
         return total
 
     def train_step(self, B: int) -> float:
         """One GAN step: G's forward (both condition nets, encoder,
         decoder), three discriminator forwards and the edge loss's apply;
-        backward through G (weights, and inputs but the data's), through D
+        backward through G (weights, and inputs but the data's: the
+        encoder's condition channels are inputs), through D
         for G's loss (inputs only) and through D for D's two terms
         (weights, and inputs but the first layer's)."""
         fwd = lambda layers: sum(layer.forward() for layer in layers)
@@ -136,6 +165,7 @@ class Counter:
         edge = 2.0 * 2 * self.n_edges * B * self.s["nn_input_channel"]
         total = 2 * fwd(emb) + fwd(enc) + fwd(dec) + 3 * fwd(disc) + 2 * edge
         total += self._backward(emb, True, False) + self._backward(enc, True, False)
+        total += self._backward(self.encoder_cond_grad(B), False, True)
         total += self._backward(dec, True, True)
         total += self._backward(disc, False, True)
         total += 2 * self._backward(disc, True, False)

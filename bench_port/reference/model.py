@@ -13,10 +13,13 @@ conditions are concatenated to the vertex features where the published
 model concatenates them, and every operator is the raw published matrix
 (`reference.mesh`). It imports neither JAX nor anything of the program.
 
-The model families covered are the two the benchmark's configurations
-use: the affine decoder (`affine: 1`) and the GraphCMR group-norm decoder
-(`affine: 0`), both with `use_res_block_dec: 1`, plain encoder blocks,
-no condition on the encoder and one clothing condition layer.
+The model families covered: the affine decoder (`affine: 1`) and the
+GraphCMR group-norm decoder (`affine: 0`), both with `use_res_block_dec:
+1` and one clothing condition layer, under any of CAPE's four encoders:
+plain blocks (conv -> act -> pool) or residual ones (`use_res_block: 1`:
+conv -> act -> conv plus the skip, projected by a 1x1 conv where the
+widths differ, -> act -> pool), each with or without the conditions
+concatenated at every vertex of its input (`cond_encoder: 1`).
 
 Parameters are a flat dict {dotted name: tensor} in float32; `dtype` is
 the compute dtype every parameter is cast to where it is used.
@@ -41,9 +44,8 @@ def channels(s: dict) -> list[int]:
     return plans[s["num_conv_layers"]]
 
 
-_COVERED = {"use_res_block": 0, "cond_encoder": 0, "n_layer_cond": 1, "use_res_block_dec": 1,
-            "activation": "b1leakyrelu", "optimizer": "sgd", "loss": "l1", "loss_mask": "",
-            "K": 2}
+_COVERED = {"n_layer_cond": 1, "use_res_block_dec": 1, "activation": "b1leakyrelu",
+            "optimizer": "sgd", "loss": "l1", "loss_mask": "", "K": 2}
 
 
 def _check(s: dict) -> None:
@@ -83,9 +85,16 @@ def param_spec(s: dict, level_sizes: list[int], level_sizes_d: list[int]) -> dic
     dense("cond_pose.fc2", hidden, s["nz_cond"])
     dense("cond_clo.fc1", s["cond2_dim"], s["nz_cond2"])
     enc = "generator.encoder"
-    fin = s["nn_input_channel"]
+    fin = s["nn_input_channel"] + (ncond if s["cond_encoder"] else 0)
     for i, fout in enumerate(F_):
-        conv(f"{enc}.layer{i}", K, fin, fout)
+        name = f"{enc}.layer{i}"
+        if s["use_res_block"]:
+            conv(f"{name}.conv1", K, fin, fout)
+            conv(f"{name}.conv2", K, fout, fout)
+            if fin != fout:
+                conv(f"{name}.proj", 1, fin, fout, bias=False)
+        else:
+            conv(name, K, fin, fout)
         fin = fout
     rate = F_[-1] // s["reduce_dim"]
     red = F_[-1] // rate
@@ -173,12 +182,21 @@ def embed(P, pose, clo, dt):
     return y, y2
 
 
-def encode(s, P, mesh, x, dt):
+def encode(s, P, mesh, x, y, y2, dt):
     enc = "generator.encoder"
     x = x.to(dt)
+    if s["cond_encoder"]:
+        x = _concat(x, y, y2)
     for i in range(s["num_conv_layers"]):
-        x = cheb(x, mesh.lap[i], _p(P, f"{enc}.layer{i}.w", dt))
-        x = mesh.down[i](_leaky(x + _p(P, f"{enc}.layer{i}.b", dt)))
+        name, lap = f"{enc}.layer{i}", mesh.lap[i]
+        if not s["use_res_block"]:
+            x = cheb(x, lap, _p(P, f"{name}.w", dt))
+            x = mesh.down[i](_leaky(x + _p(P, f"{name}.b", dt)))
+            continue
+        h = _leaky(cheb(x, lap, _p(P, f"{name}.conv1.w", dt)) + _p(P, f"{name}.conv1.b", dt))
+        h = cheb(h, lap, _p(P, f"{name}.conv2.w", dt))
+        skip = x @ _p(P, f"{name}.proj.w", dt)[0] if f"{name}.proj.w" in P else x
+        x = mesh.down[i](_leaky(h + skip + _p(P, f"{name}.conv2.b", dt)))
     x = x @ _p(P, f"{enc}.reduce.w", dt)[0]
     x = x.reshape(x.shape[0], -1)
     return _dense(P, f"{enc}.fc_mean", x, dt), _dense(P, f"{enc}.fc_var", x, dt)
@@ -231,7 +249,7 @@ def gan_losses(s, P, mesh, batch, eps, dt):
     parameters; D's loss sees G's output and conditions detached."""
     y_g, y2_g = embed(P, batch["pose_g"], batch["clo_g"], dt)
     y_d, y2_d = embed(P, batch["pose_d"], batch["clo_d"], dt)
-    z_mean, z_logvar = encode(s, P, mesh, batch["disp_g"], dt)
+    z_mean, z_logvar = encode(s, P, mesh, batch["disp_g"], y_g, y2_g, dt)
     z = z_mean + torch.exp(0.5 * z_logvar.clamp(-30.0, 30.0)) * eps.to(dt)
     x_hat = decode(s, P, mesh, torch.cat([z, y_g, y2_g], -1), y_g, y2_g, dt)
     P_fixed = {k: (v.detach() if k.startswith("discriminator.") else v) for k, v in P.items()}

@@ -1,5 +1,6 @@
 """The reference against the program at toy size on the CPU: a train
-cell's first three steps (both decoder families) and the served
+cell's first three steps (both decoder families, and the residual
+encoder with and without conditions on it) and the served
 generation."""
 
 import numpy as np
@@ -14,10 +15,18 @@ from bench_port.tests import toy
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("family", ["affine", "cmr"])
+FAMILIES = {
+    "affine": lambda: toy.config("affine_nz64", toy.TOY_AFFINE),
+    "cmr": lambda: toy.config("cmr_nz18", toy.TOY_CMR),
+    # configs/default_config.yaml's: residual encoder, conditioned
+    "res_cond": lambda: toy.default_config(),
+    "res": lambda: toy.default_config({**toy.TOY_DEFAULT, "cond_encoder": 0}),
+}
+
+
+@pytest.mark.parametrize("family", FAMILIES)
 def test_first_steps_match_the_reference(family):
-    cf = toy.with_settings(toy.config("affine_nz64" if family == "affine" else "cmr_nz18",
-                                      toy.TOY_AFFINE if family == "affine" else toy.TOY_CMR))
+    cf = toy.with_settings(FAMILIES[family]())
     mix = toy.TRAIN_MIX
     cfg = train_cell.program_config(cf, mix, toy.SEED, "toy")
     mesh, raw_of = train_cell.meshes(cf, cfg)
@@ -54,3 +63,12 @@ def test_generation_matches_the_reference():
                            torch.float32)
     gap = np.abs(got - want.numpy()).max() / np.abs(want.numpy()).max()
     assert gap < 1e-5, gap
+
+
+@pytest.mark.parametrize("key,value", [("n_layer_cond", 2), ("use_res_block_dec", 0), ("K", 3)])
+def test_uncovered_families_are_refused(key, value):
+    """Families the reference does not cover are refused before any
+    weight is drawn, whatever encoder they have."""
+    s = {**toy.with_settings(toy.default_config())["settings"], key: value}
+    with pytest.raises(NotImplementedError, match=key):
+        ref.param_spec(s, [258, 258, 130, 130, 130], [258, 130, 66, 34, 18])

@@ -20,6 +20,10 @@ TOY_AFFINE = {"num_conv_layers": 4, "nf": 8, "nz": 8, "nz_cond": 8, "nz_cond2": 
 # group norms of more than one channel wherever conditions enter (C > 32)
 TOY_CMR = {"num_conv_layers": 4, "nf": 32, "nz": 8, "nz_cond": 24, "nz_cond2": 8, "reduce_dim": 8,
            "affine": 0}
+# configs/default_config.yaml's family at TOY_CMR's widths, with its own
+# 4-channel bottleneck: residual encoder blocks whose plan [nf, 2nf, 2nf,
+# nf] holds projected and identity skips, conditions on the encoder
+TOY_DEFAULT = {**TOY_CMR, "reduce_dim": 4}
 TRAIN_MIX = {"kind": "train", "compute_dtype": "float32", "batch_size": 4, "n_train": 64,
              "steps_per_dispatch": 2, "profile_steps": 1, "rank": 4, "noise": 0.1,
              "pose_std": 0.3, "chunk": 16}
@@ -43,6 +47,27 @@ def config(base: str = "affine_nz64", widths: dict = TOY_AFFINE) -> dict:
         cf = json.load(f)
     cf["preset"] = {**cf["preset"], **widths}
     cf["toy_mesh"] = 3
+    return cf
+
+
+def default_config(widths: dict | None = TOY_DEFAULT) -> dict:
+    """configs/default_config.yaml as a configuration file: its keys
+    verbatim as the preset, over cmr_nz18's defaults and deployment
+    settings and the two CAPE defaults it leaves out that cmr_nz18's
+    preset sets (`affine: 0`, `lr_warmup: 0`); at `widths` on the
+    icosphere, or published on the published pyramid with None."""
+    from cape_tpu_torch.core.config import read_preset
+
+    with open(os.path.join(BENCH_DIR, "configs", "cmr_nz18.json")) as f:
+        cf = json.load(f)
+    cf = {k: cf[k] for k in ("defaults", "overrides", "reduced", "assumed")}
+    cf["defaults"].update(affine=0, lr_warmup=0)
+    cf.update(name="default_nz18", preset_file="configs/default_config.yaml",
+              source="https://github.com/qianlim/CAPE/blob/master/configs/default_config.yaml",
+              preset=read_preset(os.path.join(REPO, "configs", "default_config.yaml")))
+    if widths is not None:
+        cf["preset"].update(widths)
+        cf["toy_mesh"] = 3
     return cf
 
 
