@@ -26,6 +26,7 @@ from cape_tpu_torch.core.params import (
     leaky_relu,
     split,
 )
+from cape_tpu_torch.core.spans import span
 from cape_tpu_torch.models import blocks
 from cape_tpu_torch.ops.banded import padded_size
 from cape_tpu_torch.ops.cheb import cheb_conv, cheb_conv_folded
@@ -229,7 +230,12 @@ class CAPE(nn.Module):
 
     # --------------------------------------------------------------- encoder
     def encode(self, ctx: GraphContext, x, y, y2):
-        """x [B,V,3] -> (z_mean, z_logvar) [B,nz]."""
+        """x [B,V,3] -> (z_mean, z_logvar) [B,nz], named `model.encode` in
+        a running profiler's trace (`core.spans.span`)."""
+        with span("model.encode"):
+            return self._encode(ctx, x, y, y2)
+
+    def _encode(self, ctx: GraphContext, x, y, y2):
         cfg = self.cfg
         enc = self.params["generator"]["encoder"]
         x = x.to(self.dtype)

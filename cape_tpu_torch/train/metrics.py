@@ -4,8 +4,9 @@ Counterpart of `cape_tpu.train.metrics`: console lines, an append-only
 JSONL metrics file per run, EMA-smoothed G/D losses (the reference's
 ExponentialMovingAverage(0.9)), an optional TensorBoard mirror of every
 logged scalar (`train.tb_events`), `profile_steps`, a torch.profiler
-context over CPU and CUDA activity that writes a Chrome trace, and `span`,
-the named phases of a train step that such a trace shows (`TRAIN_SPANS`).
+context over CPU and CUDA activity that writes a Chrome trace, and, from
+`core.spans`, `span`, the named phases of a train step that such a trace
+shows (`TRAIN_SPANS`) and of the model's parts (`MODEL_SPANS`).
 """
 
 from __future__ import annotations
@@ -18,16 +19,8 @@ from typing import Any
 
 import torch
 
+from cape_tpu_torch.core.spans import MODEL_SPANS, TRAIN_SPANS, span  # noqa: F401 (re-exported)
 from cape_tpu_torch.train.tb_events import TBEventWriter, tb_tag
-
-# The phases of `Trainer.run_steps`, each a `span` on the calling thread:
-# a chunk's noise draw and its loss screen, and per step the step itself
-# and, inside it in turn, its batch gather, the GAN forward, the backward,
-# the gradient mean over the ranks (under data parallelism only) and the
-# optimizer with the in-place parameter update.
-TRAIN_SPANS = ("train.noise", "train.step", "train.gather", "train.forward", "train.backward",
-               "train.reduce", "train.optimizer", "train.screen")
-_NO_SPAN = contextlib.nullcontext()
 
 
 class EMA:
@@ -100,14 +93,3 @@ def profile_steps(log_dir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()  # the enclosed steps' kernels end inside the capture
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def span(name: str):
-    """A context naming the enclosed work `name` in a running profiler's
-    trace (a `record_function`, shown as a `user_annotation` event on the
-    calling thread's timeline); while no profiler runs, a shared null
-    context. The gate is the flag torch.profiler sets for the process: a
-    `record_function` costs microseconds even with the profiler off."""
-    if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return _NO_SPAN

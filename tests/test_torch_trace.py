@@ -3,15 +3,21 @@
 while no profiler runs, the spans of a dispatch chunk under the CPU
 profiler (their counts, their nesting in each step, the train.reduce span
 under a process group), and the chunk's losses and parameters unchanged
-by them, bit for bit.
+by them, bit for bit. The model's own span (`MODEL_SPANS`: `CAPE.encode`'s
+`model.encode`) in a profiled step of configs/default_config.yaml's
+family: one a step, on the step's thread, inside `train.forward`.
 
 The model is the multihost selftest's (`parallel.multihost._tiny`: the
-icosphere(3) model at nf=4, batch 8). The process-group case runs this
-file as a script (`python tests/test_torch_trace.py reduce <port>`): one
-Gloo rank, one thread, a timeout.
+icosphere(3) model at nf=4, batch 8); default_config.yaml's family is the
+same at its own switches (residual encoder blocks, conditions on the
+encoder, a 4-channel bottleneck, the GraphCMR decoder, no edge loss). The
+process-group case runs this file as a script (`python
+tests/test_torch_trace.py reduce <port>`): one Gloo rank, one thread, a
+timeout.
 """
 
 import collections
+import dataclasses
 import json
 import os
 import socket
@@ -39,6 +45,19 @@ def tiny():
     return _tiny()
 
 
+@pytest.fixture(scope="module")
+def tiny_default():
+    """The selftest's model and data in configs/default_config.yaml's
+    family: its switches over the selftest's widths (the context does not
+    depend on them), at nf=2 so that each GraphCMR group norm, the
+    conditions' 12 channels included, holds at most 32 channels."""
+    cfg, ctx, data = _tiny()
+    cfg = dataclasses.replace(cfg, name="trace_default", nf=2, use_res_block=True,
+                              use_res_block_dec=True, cond_encoder=True, affine=False,
+                              reduce_dim=4, lambda_edge=0.0, lr_warmup=False)
+    return cfg, ctx, data
+
+
 def _trainer(tiny, workdir):
     from cape_tpu_torch.data.loader import BatchStream
     from cape_tpu_torch.parallel.multihost import _model
@@ -58,25 +77,26 @@ def _chunk(t, sg, sd):
     return [(m["loss_g"].item(), m["loss_d"].item()) for m in metrics]
 
 
-def _spans(prof, path) -> list[tuple[str, float, float, int]]:
-    """(name, start, end, tid) of the trace's TRAIN_SPANS events, by start
-    (a span before those it holds)."""
+def _spans(prof, path, names=None) -> list[tuple[str, float, float, int]]:
+    """(name, start, end, tid) of the trace's events named in `names`
+    (TRAIN_SPANS by default), by start (a span before those it holds)."""
     from cape_tpu_torch.train.metrics import TRAIN_SPANS
 
+    names = TRAIN_SPANS if names is None else names
     prof.export_chrome_trace(str(path))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     return sorted(((e["name"], e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
-                   if e.get("cat") == "user_annotation" and e["name"] in TRAIN_SPANS),
+                   if e.get("cat") == "user_annotation" and e["name"] in names),
                   key=lambda s: (s[1], -s[2]))
 
 
-def _profiled_chunk(tiny, tmp_path):
+def _profiled_chunk(tiny, tmp_path, names=None):
     t, sg, sd = _trainer(tiny, tmp_path)
     _chunk(t, sg, sd)   # the first update has no momentum yet
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         _chunk(t, sg, sd)
-    return _spans(prof, tmp_path / "trace.json")
+    return _spans(prof, tmp_path / "trace.json", names)
 
 
 def test_the_profiler_flag_is_set_inside_a_profile_only():
@@ -152,6 +172,36 @@ def test_spans_change_no_loss_or_parameter(tiny, tmp_path):
     assert got.keys() == want.keys()
     for n in want:
         torch.testing.assert_close(got[n], want[n], rtol=0, atol=0, msg=n)
+
+
+def test_model_spans_are_not_train_spans():
+    from cape_tpu_torch.train.metrics import MODEL_SPANS, TRAIN_SPANS, span
+
+    assert MODEL_SPANS == ("model.encode",)
+    assert not set(MODEL_SPANS) & set(TRAIN_SPANS)
+    # while no profiler runs, the model's span is the train spans' one
+    # shared null context
+    assert span("model.encode") is span("train.step")
+
+
+def test_one_encode_span_per_step_inside_its_forward(tiny_default, tmp_path):
+    """A profiled chunk of configs/default_config.yaml's family: one
+    model.encode a step, on the thread that runs the steps (the encoder's
+    backward runs on autograd's), each inside its step's train.forward."""
+    from cape_tpu_torch.train.metrics import MODEL_SPANS, TRAIN_SPANS
+
+    cfg = tiny_default[0]
+    assert (cfg.use_res_block, cfg.cond_encoder, cfg.fold_conditions, cfg.reduce_dim) == (
+        True, True, True, 4)
+    spans = _profiled_chunk(tiny_default, tmp_path, TRAIN_SPANS + MODEL_SPANS)
+    counts = collections.Counter(name for name, *_ in spans)
+    assert counts["model.encode"] == counts["train.step"] == K
+    assert len({tid for *_, tid in spans}) == 1
+    forwards = [(a, b) for name, a, b, _ in spans if name == "train.forward"]
+    encodes = [(a, b) for name, a, b, _ in spans if name == "model.encode"]
+    assert len(forwards) == K
+    for (fa, fb), (ea, eb) in zip(forwards, encodes):
+        assert fa <= ea and eb <= fb
 
 
 def _free_port() -> int:
