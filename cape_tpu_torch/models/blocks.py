@@ -25,7 +25,7 @@ import torch
 
 from cape_tpu_torch.core.params import conv_bias, conv_weight, split
 from cape_tpu_torch.ops.cheb import _project, cheb_conv, cheb_conv_folded, cheb_conv_up_folded
-from cape_tpu_torch.ops.norm import group_norm
+from cape_tpu_torch.ops.norm import group_norm_relu
 from cape_tpu_torch.parallel.mesh2d import full, shard_apply
 
 
@@ -108,13 +108,14 @@ def cmr_block_apply(p: dict, x_in, lap, up, n_valid: int | None = None):
     """unpool -> [GN -> relu -> 1x1 -> GN -> relu -> cheb -> GN -> relu -> 1x1]
     plus the (projected) skip (GraphCMR, 1905.03244). n_valid: the natural
     vertex count of the unpooled level in the padded layout, where the
-    group-norm statistics run over valid rows only (ops.norm)."""
+    group-norm statistics run over valid rows only (ops.norm). Each GN ->
+    relu is one `group_norm_relu`: on CUDA a hand-written kernel."""
     xu = up(x_in)
-    x = torch.relu(group_norm(xu, *_norm(p["gn0"]), n_valid=n_valid))
+    x = group_norm_relu(xu, *_norm(p["gn0"]), n_valid=n_valid)
     x = conv1x1_apply(p["lin1"], x, lap)
-    x = torch.relu(group_norm(x, *_norm(p["gn1"]), n_valid=n_valid))
+    x = group_norm_relu(x, *_norm(p["gn1"]), n_valid=n_valid)
     x = cheb_conv(x, lap, p["conv"]["w"])
-    x = torch.relu(group_norm(x, *_norm(p["gn2"]), n_valid=n_valid))
+    x = group_norm_relu(x, *_norm(p["gn2"]), n_valid=n_valid)
     x = conv1x1_apply(p["lin2"], x, lap)
     skip = conv1x1_apply(p["proj"], xu, lap) if "proj" in p else xu
     return x + skip

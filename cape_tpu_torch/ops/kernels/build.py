@@ -80,20 +80,20 @@ def build_host(name: str) -> Path:
     return _compile(SRC_DIR / f"{name}.cpp", _cxx, CXX_FLAGS)
 
 
-def _bind(lib: ctypes.CDLL, fn: str, n_ints: int, n_ptrs: int) -> None:
+def _bind(lib: ctypes.CDLL, fn: str, n_ints: int, n_ptrs: int, n_floats: int = 0) -> None:
     """Bind the entry `fn` of lib: n_ptrs pointers, then n_ints ints, then
-    the stream; it returns a cudaError_t."""
+    n_floats floats, then the stream; it returns a cudaError_t."""
     p, i = ctypes.c_void_p, ctypes.c_int
     entry = getattr(lib, fn)
-    entry.argtypes = [p] * n_ptrs + [i] * n_ints + [p]
+    entry.argtypes = [p] * n_ptrs + [i] * n_ints + [ctypes.c_float] * n_floats + [p]
     entry.restype = i
 
 
-def _load(name: str, fn: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
+def _load(name: str, fn: str, n_ints: int, n_ptrs: int, n_floats: int = 0) -> ctypes.CDLL:
     """Build csrc/<name>.cu and bind its entry `fn` (`_bind`) and its error
     string."""
     lib = ctypes.CDLL(str(build(name)))
-    _bind(lib, fn, n_ints, n_ptrs)
+    _bind(lib, fn, n_ints, n_ptrs, n_floats)
     lib.cape_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cape_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -117,4 +117,15 @@ def cheb2_fused_lib() -> ctypes.CDLL:
     # W, pad_left, rows_out, tiles, then the plan: BN, BK, window rows, smem,
     # grid x, grid y
     _bind(lib, "cape_cheb2_window", n_ints=15, n_ptrs=7)
+    return lib
+
+
+@functools.cache
+def group_norm_relu_lib() -> ctypes.CDLL:
+    """The fused group norm + ReLU kernels' library, built on first use."""
+    # x, gamma, beta, y, mean, rstd; dtype, B, V, C, G, n_valid, then the plan:
+    # vec, k, p, rows, threads, smem; eps
+    lib = _load("group_norm_relu", "cape_group_norm_relu_fwd", n_ints=12, n_ptrs=6, n_floats=1)
+    # x, dy, gamma, beta, mean, rstd, dx, part, dgamma, dbeta; the same ints
+    _bind(lib, "cape_group_norm_relu_bwd", n_ints=12, n_ptrs=10)
     return lib

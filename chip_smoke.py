@@ -103,8 +103,8 @@ result line):
      (1) The CMR release preset (GraphCMR group-norm decoder, unfolded
      output conv on 64 + 32 channels) behind the HTTP server: the serve
      phase's requests, 7 band_apply launches per encode and decode device
-     call and no other kernel; the same requests on the plain route, no
-     launch, held to the kernel route; the golden's decode (1e-4 *
+     call and no other band kernel; the same requests on the plain route,
+     no band launch, held to the kernel route; the golden's decode (1e-4 *
      max|ref|) and encode (z_mean, z_logvar); two GAN steps on the kernel
      and the plain route (17 + 17 and 0 + 0 launches a step) held to the
      golden (metrics 1e-4 relative, updates by hold_updates); the same
@@ -112,9 +112,15 @@ result line):
      relative, updates within 1e-5 of each leaf's max|update|), its extra
      forward launches logged; the decode call and the train step timed on
      both routes (3 rounds of 2 steps); the train mode through
-     apps.main.run, as phase 10. (2) default_config.yaml (residual
-     encoder, CMR decoder): encode (15 launches) and decode (7) held to the
-     golden, two GAN steps (25 + 25 launches a step) held to it, and the
+     apps.main.run, as phase 10. The decoder's 24 group norms run the norm
+     kernel on both routes (no CUDA tensor takes the plain norm), so the
+     routes' comparisons hold the band kernels and the JAX golden holds
+     the norm kernel: each serve and train run checks ops.norm.launches,
+     24 per decode call and 72 a step (96 with remat, whose backward runs
+     the decoder's blocks again). (2) default_config.yaml (residual
+     encoder, CMR decoder): encode (15 launches, no norm) and decode (7;
+     24 norm launches) held to the golden, two GAN steps (25 + 25 launches
+     and 72 norm launches a step) held to it, and the
      same steps on the plain route, unnudged and with the parameters moved
      by one ulp (NUDGE_SEEDS): its one-ulp spread enters the bound of
      both routes' step-2 updates (hold_steps). (3) The
@@ -254,11 +260,32 @@ result line):
      operator), forward and transpose, held to apply_blocks (f32, 1e-5 *
      max|ref|) and timed against it in turns, with the bound of each;
      their launches count in kernel_applies only.
+ 25. norm (after phase 24): the fused group norm + ReLU
+     (csrc/group_norm_relu.cu, ops.norm.group_norm_relu; it replaces no
+     TPU kernel) at every distinct norm shape of the GraphCMR decoder at
+     batch 16 (NORM_SHAPES: 11 shapes, C/G = 1 to 17, the natural rows
+     valid), in f32, bf16 and f16: y, dx, dgamma and dbeta against the
+     plain version's f32 arithmetic on the same inputs (1e-5 of max|ref|
+     for y and dx, 1e-4 for dgamma and dbeta in f32; one ulp of the dtype
+     for y and dx in 16 bits), with the gap to the plain version run in
+     the 16-bit dtype in ulps. The cotangent is zeroed within 1e-5 of
+     max|z| of the ReLU's kink (NORM_KINK; the count is logged), where
+     either side's rounding may cross it; with the cotangent left whole,
+     dx's worst element, where it is past the limit, must lie within that
+     window. Each shape's plan (`norm_plan`); at the finest level's three
+     norms, [16, 6912, C] for C = 160, 32, 96, each direction's f32 call
+     time against the plain version's, in turns, and both device times
+     (`device_ms`: the profiler's kernel durations) beside the bytes
+     bound; and the host's split of a call (`norm_host_split`).
+     `python3 chip_smoke.py norm` runs phases 1, 2 and 25 alone.
 Launch counts (`read_counts`): `launches` and `bwd_launches` are the conv
 route's band_apply launches; `kernel_applies` the plain BandedOp applies
 on the same kernel, which take it wherever use_pallas puts the conv route
 (each `only` that allows them names them); `bf16_launches` and
 `f16_launches` count both (`half_launches`).
+The norm kernel counts in ops.norm.launches, outside COUNTS (zero_counts
+zeroes it; `norm_launches` checks it): the GraphCMR decoder launches it
+on either route, 24 times a decode forward and 72 a train step.
 Every timed record carries `bound_ms`, the least time the card could take
 for the same work (see `bound`). The per-case records go to
 build/chip_smoke_kernels.json. The last two lines are a JSON summary of
@@ -419,12 +446,29 @@ COUNTS = ("launches", "bwd_launches", "bf16_launches", "f16_launches", "fused1_l
 
 
 def zero_counts() -> None:
-    from cape_tpu_torch.ops import banded
+    from cape_tpu_torch.ops import banded, norm
     from cape_tpu_torch.ops.kernels import cheb_kernel
 
     for k in COUNTS:
         setattr(cheb_kernel, k, 0)
     banded.kernel_applies = 0
+    norm.launches = 0
+
+
+# the norm kernel's launches of the GraphCMR decoder: 24 norms, one launch
+# each forward and two each backward
+NORM_PER_DECODE, NORM_PER_STEP = 24, 72
+
+
+def norm_launches(name: str, want: int) -> int:
+    """The norm kernel's launches (ops.norm.launches) since zero_counts,
+    which must be `want`."""
+    from cape_tpu_torch.ops import norm
+
+    log(f"{name}: group_norm_relu launches {norm.launches} (expected {want})")
+    if norm.launches != want:
+        raise AssertionError(f"{name}: {norm.launches} norm kernel launches, expected {want}")
+    return norm.launches
 
 
 def read_counts() -> dict:
@@ -471,11 +515,12 @@ def build_phase():
     from cape_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
-    names = ("band_gather", "cheb2_fused")
+    names = ("band_gather", "cheb2_fused", "group_norm_relu")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
     build.band_gather_lib()
     build.cheb2_fused_lib()
+    build.group_norm_relu_lib()
     log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         ptxas = (lib.parent / f"{lib.stem}.log")
@@ -1066,6 +1111,222 @@ def op_apply_phase(ctx, smi):
     if not counts["kernel_applies"] or not only(counts, "kernel_applies"):
         raise AssertionError(f"op applies: counts {counts}, expected kernel_applies only")
     return records
+
+
+# phase 25: the distinct norm shapes of the GraphCMR decoder at batch 16,
+# (V, n_valid, C) in the padded layout (tests/test_torch_norm_kernel.py's
+# DECODER_NORMS: C/G = 17, 8, 9, 4, 5, 2, 3 and 1); the finest level's
+# three, the last, are timed
+NORM_B = 16
+NORM_SHAPES = [(896, 862, 544), (896, 862, 256), (1792, 1723, 544), (1792, 1723, 128),
+               (1792, 1723, 288), (3456, 3445, 288), (3456, 3445, 64), (3456, 3445, 160),
+               (6912, 6890, 160), (6912, 6890, 32), (6912, 6890, 96)]
+NORM_TIMED = NORM_SHAPES[-3:]
+NORM_SOURCE = "cape_tpu_torch/csrc/group_norm_relu.cu"
+# the cotangent is zeroed where the value before the ReLU lies within this
+# share of max|z| of the kink: the two sides' statistics differ in their
+# last bits (y, which is z where positive, by up to ~2e-7 of max|z|), so
+# an element that close may fall on either side, and its dx with it
+NORM_KINK = 1e-5
+
+
+def norm_phase(smi):
+    """Phase 25: the fused group norm + ReLU against its plain version at
+    NORM_SHAPES, f32, bf16 and f16; each NORM_TIMED direction's time in f32
+    (time_routes: the kernel's and the plain version's forward under
+    no_grad, and their backward through a kept graph) beside the bytes
+    bound: x read and y written forward, x and dy read and dx written
+    backward; and the host's split of a call (norm_host_split). Returns the
+    records."""
+    from cape_tpu_torch.ops import norm
+    from cape_tpu_torch.ops.norm import group_norm, group_norm_relu, norm_plan
+    from cape_tpu_torch.tools.perf_lab import time_routes
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def graph(fn, x, g, b, dy):
+        x, g, b = (t.detach().clone().requires_grad_() for t in (x, g, b))
+        y = fn(x, g, b)
+        grads = lambda: torch.autograd.grad(y, (x, g, b), dy, retain_graph=True)
+        return y, grads, (y, *grads())
+
+    records = []
+    before = norm.launches
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for V, n_valid, C in NORM_SHAPES:
+            B = NORM_B
+            plain = lambda x, g, b: torch.relu(group_norm(x, g, b, n_valid=n_valid))
+            kernel = lambda x, g, b: group_norm_relu(x, g, b, n_valid=n_valid)
+            x = (2 * torch.randn((B, V, C), generator=gen, device="cuda") + 0.5).to(dtype)
+            dy_raw = torch.randn((B, V, C), generator=gen, device="cuda").to(dtype)
+            dy_raw[:, n_valid:] = 0
+            g = 1 + 0.3 * torch.randn(C, generator=gen, device="cuda")
+            b = 0.2 * torch.randn(C, generator=gen, device="cuda")
+            r = lambda t: t.to(dtype).float()
+            z = group_norm(x.float(), r(g), r(b), n_valid=n_valid)
+            z_max = z[:, :n_valid].abs().max().item()
+            near = z.abs() < NORM_KINK * z_max
+            dy = torch.where(near, 0, dy_raw)
+            _, k_grads, got = graph(kernel, x, g, b, dy)
+            _, p_grads, ref = graph(plain, x.float(), r(g), r(b), dy.float())
+            torch.cuda.synchronize()
+            rec = {"dtype": _name(dtype), "B": B, "V": V, "C": C, "n_valid": n_valid,
+                   "plan": norm_plan(dtype, B, V, C, 32, False, True),
+                   "bwd_plan": norm_plan(dtype, B, V, C, 32, True, True),
+                   "kink_zeroed": int(near.sum()), "elements": B * V * C}
+            for name, a, w in zip(("y", "dx", "dgamma", "dbeta"), got, ref):
+                scale = w.abs().max().item()
+                err = (a.float() - w).abs().max().item()
+                if dtype == torch.float32 or name in ("dgamma", "dbeta"):
+                    limit = (1e-4 if name in ("dgamma", "dbeta") else 1e-5) * scale
+                else:
+                    limit = (bf16_ulp if dtype == torch.bfloat16 else f16_ulp)(scale)
+                rec[f"{name}_err"], rec[f"{name}_limit"] = err, limit
+                if not err <= limit:
+                    raise AssertionError(f"group_norm_relu disagrees with plain: {name} {rec}")
+            # the cotangent left whole: where dx's worst element is past the
+            # limit, it lies within NORM_KINK * max|z| of the kink (a flip
+            # there moves its own dx by rstd gamma dy, and its group's by
+            # 1/n of that)
+            err = (graph(kernel, x, g, b, dy_raw)[2][1].float()
+                   - graph(plain, x.float(), r(g), r(b), dy_raw.float())[2][1]).abs()
+            worst = int(err.argmax())
+            rec["whole_dy_dx_err"] = err.flatten()[worst].item()
+            rec["whole_dy_dx_over"] = int((err > rec["dx_limit"]).sum())
+            rec["whole_dy_worst_z"] = z.flatten()[worst].abs().item() / z_max
+            if rec["whole_dy_dx_err"] > rec["dx_limit"] and not rec["whole_dy_worst_z"] < NORM_KINK:
+                raise AssertionError(f"group_norm_relu's worst dx is off the kink: {rec}")
+            if dtype != torch.float32:
+                ulp = (bf16_ulp if dtype == torch.bfloat16 else f16_ulp)(ref[0].abs().max().item())
+                y16 = plain(x, g, b).float()
+                rec["plain16_ulp"] = (y16 - ref[0]).abs().max().item() / ulp
+                rec["gap16_ulp"] = (got[0].float() - y16).abs().max().item() / ulp
+            if dtype == torch.float32 and (V, n_valid, C) in NORM_TIMED:
+                el = x.element_size() * B * V * C
+                for d, what, kernel_fn, plain_fn, nbytes in (
+                        ("fwd", "forward", functools.partial(kernel, x, g, b),
+                         functools.partial(plain, x, g, b), 2 * el),
+                        ("bwd", "backward", k_grads, p_grads, 3 * el)):
+                    with torch.no_grad() if d == "fwd" else contextlib.nullcontext():
+                        t = time_routes({"ms": kernel_fn, "plain_ms": plain_fn})
+                        t["device_ms"], t["plain_device_ms"] = device_ms(kernel_fn), device_ms(plain_fn)
+                    rec[d] = {**t, **bound(nbytes, 8 * B * V * C, dtype)}
+                    log(f"group_norm_relu [{B},{V},{C}] f32 {what} [{smi}]: call {t['ms']:.4f} ms "
+                        f"(plain {t['plain_ms']:.4f}); device {t['device_ms']:.4f} ms (plain "
+                        f"{t['plain_device_ms']:.4f}); bound {rec[d]['bound_ms']:.4f} ms, "
+                        f"{rec[d]['bound_ms'] / t['device_ms']:.1%} of it on the device")
+            log("group_norm_relu vs plain " + json.dumps(rec))
+            records.append(rec)
+    log(f"norm: {norm.launches - before} launches; phase {time.perf_counter() - t_phase:.2f} s")
+    records.append({"host_split": norm_host_split(smi)})
+    return records
+
+
+def norm_host_split(smi, shape=(16, 6912, 6890, 32), calls: int = 200) -> dict:
+    """Where a norm call's host time goes, f32 at `shape` (B, V, n_valid, C;
+    the finest level's narrowest norm, whose device time is least): the
+    host time a call (perf_counter over `calls` calls, then one
+    synchronize: the device is the faster, so the host sets the pace) of
+    the forward (group_norm_relu under no_grad) and its ctypes entry alone;
+    of the backward through torch.autograd.grad, its body called directly
+    (_GroupNormReLU.backward on the graph's node) and its ctypes entry
+    alone; and of one small aten operator, the unit of the plain version's
+    cost. Returns µs a call."""
+    from cape_tpu_torch.ops import norm
+    from cape_tpu_torch.ops.kernels.cheb_kernel import _stream
+    from cape_tpu_torch.ops.norm import _GroupNormReLU, _entries, group_norm_relu, norm_plan
+
+    B, V, n_valid, C = shape
+    G = 32
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = (2 * torch.randn((B, V, C), generator=gen, device="cuda") + 0.5).requires_grad_()
+    g = (1 + 0.3 * torch.randn(C, generator=gen, device="cuda")).requires_grad_()
+    b = (0.2 * torch.randn(C, generator=gen, device="cuda")).requires_grad_()
+    dy = torch.randn((B, V, C), generator=gen, device="cuda")
+    y = group_norm_relu(x, g, b, n_valid=n_valid)
+    node = y.grad_fn
+    _, fwd, bwd = _entries()
+    out, dx = torch.empty_like(x), torch.empty_like(x)
+    stats = torch.empty((2, B, G), device="cuda")
+    buf = torch.empty((B + 1, 2, C), device="cuda")
+    s, d, stream = stats.data_ptr(), buf.data_ptr() + 8 * B * C, _stream(x)
+    fplan = norm_plan(torch.float32, B, V, C, G, False, True)
+    bplan = norm_plan(torch.float32, B, V, C, G, True, True)
+    one = torch.zeros(1, device="cuda")
+    before = norm.launches
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
+
+    with torch.no_grad():
+        split = {
+            "forward_call": host_us(lambda: group_norm_relu(x, g, b, n_valid=n_valid)),
+            "forward_ctypes": host_us(lambda: fwd(
+                x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(), s, s + 4 * B * G, 0,
+                B, V, C, G, n_valid, *fplan, 1e-5, stream)),
+            "backward_body": host_us(lambda: _GroupNormReLU.backward(node, dy)),
+            "backward_ctypes": host_us(lambda: bwd(
+                x.data_ptr(), dy.data_ptr(), g.data_ptr(), b.data_ptr(), s, s + 4 * B * G,
+                dx.data_ptr(), buf.data_ptr(), d, d + 4 * C, 0, B, V, C, G, n_valid, *bplan,
+                stream)),
+            "empty": host_us(lambda: torch.empty((B + 1, 2, C), device="cuda")),
+            "aten_add_": host_us(lambda: one.add_(1)),
+        }
+    split["backward_grad"] = host_us(
+        lambda: torch.autograd.grad(y, (x, g, b), dy, retain_graph=True))
+    split["launches"] = norm.launches - before
+    log(f"group_norm_relu host split [{B},{V},{C}] f32, µs a call [{smi}]: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items() if k != "launches"))
+    return split
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """The device time of one call of fn: the summed durations of the
+    kernels, copies and sets it ran in `calls` calls under torch.profiler,
+    over `calls`. time_routes' call times include the host's time between
+    launches where the host is slower than the device."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    us = sum(e.get("dur", 0) for e in events if e.get("ph") == "X"
+             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return us / 1e3 / calls
+
+
+def norm_rows(records) -> list[dict]:
+    """The kernels line's rows of the norm kernel, each direction: the
+    worst f32 error over NORM_SHAPES, and the times (call and device) and
+    bounds summed over NORM_TIMED in f32."""
+    f32 = [r for r in records if r.get("dtype") == "float32"]
+    rows = []
+    for d, name, errs in (("fwd", "group_norm_relu", ("y",)),
+                          ("bwd", "group_norm_relu_bwd", ("dx", "dgamma", "dbeta"))):
+        timed = [r[d] for r in f32 if d in r]
+        rows.append({
+            "name": name, "route": "cuda", "source": NORM_SOURCE,
+            "replaces": None,   # none: the JAX package leaves the norm to XLA's fusion
+            "max_abs_err": max(r[f"{e}_err"] for r in f32 for e in errs),
+            **{k: sum(t[k] for t in timed)
+               for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")},
+            **summed_bound(timed), "library_ms": None,
+        })
+    return rows
 
 
 def lab_phase(smi):
@@ -1953,15 +2214,19 @@ def cmr_serve(cfg, ctx, ctx_plain, golden, smi):
         engine.calls = dict.fromkeys(engine.calls, 0)
         served = requests(client, pose, clo)
         launches = served_launches("CMR preset served", engine, read_counts(), 7)
+        norm_launches("CMR preset served", NORM_PER_DECODE * engine.calls["decode"])
     finally:
         stop_server(httpd, thread)
     engine_plain = InferenceEngine(model, ctx_plain, cfg.batch_size)
     httpd, thread, _, client = start_server(engine_plain)
     try:
         zero_counts()
+        engine_plain.calls = dict.fromkeys(engine_plain.calls, 0)
         plain = requests(client, pose, clo)
         if any(read_counts().values()):
             raise AssertionError(f"the CMR preset's plain route launched {read_counts()}")
+        norm_launches("CMR preset served, plain route",
+                      NORM_PER_DECODE * engine_plain.calls["decode"])
     finally:
         stop_server(httpd, thread)
     for name in ("sample", "decode", "reconstruct"):
@@ -1977,6 +2242,7 @@ def cmr_serve(cfg, ctx, ctx_plain, golden, smi):
     x = golden_meshes(golden)
     z_mean, z_logvar, _, _ = engine.encode(x, pose, clo)
     launches += served_launches("CMR preset golden decode and encode", engine, read_counts(), 7)
+    norm_launches("CMR preset golden decode and encode", NORM_PER_DECODE * engine.calls["decode"])
     held_to("CMR preset, kernel route vs JAX golden (batch-32 decode)", disp[: len(golden["disp"])],
             golden["disp"])
     held_to("CMR preset, kernel route vs JAX golden (encode z_mean)", z_mean, golden["z_mean"])
@@ -2057,6 +2323,9 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
         total = read_counts()
         log(f"CMR train steps, {route}: band_apply launches (forward, backward) per step "
             f"{counts}; all counts {json.dumps(total)}")
+        # remat: the backward runs each decoder block's forward again
+        per_step = NORM_PER_STEP + (NORM_PER_DECODE if route == "remat" else 0)
+        norm_launches(f"CMR train steps, {route}", per_step * len(counts))
         want = {"kernel": [(FWD_PER_STEP, BWD_PER_STEP)] * 2, "plain": [(0, 0)] * 2}.get(route)
         if want is not None and counts != want:
             raise AssertionError(f"CMR {route} steps: launches {counts}, expected {want}")
@@ -2115,6 +2384,7 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
             disp = engine.decode(np.concatenate([golden["z"], y, y2], -1), y, y2)
         counts = read_counts()
         calls = dict(engine.calls)
+        norm_launches(f"default_config.yaml {stage}", NORM_PER_DECODE * calls["decode"])
         log(f"default_config.yaml {stage}: device calls {calls}; all counts {json.dumps(counts)}")
         if (counts["launches"] != per_call * calls[stage]
                 or not only(counts, "launches", "kernel_applies")):
@@ -2130,6 +2400,7 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
     zero_counts()
     _, metrics, updates, counts = gan_steps(dcfg, ctx, batches, eps, spe, golden)
     total = read_counts()
+    norm_launches("default_config.yaml train steps", NORM_PER_STEP * len(counts))
     log(f"default_config.yaml train steps: band_apply launches (forward, backward) per step "
         f"{counts}; all counts {json.dumps(total)}")
     if counts != [(25, 25)] * 2 or not only(total, "launches", "kernel_applies", "bwd_launches"):
@@ -3550,6 +3821,7 @@ def main():
     bm_records = bm_phase(ctx, smi)
     ring_records, ring_counts = ring_phase(ctx, smi)
     op_records = op_apply_phase(ctx, smi)
+    norm_records = norm_phase(smi)
 
     model = CAPE(cfg).init_params(torch.Generator().manual_seed(0), ctx).to("cuda")
     n_params = sum(p.numel() for p in model.parameters())
@@ -3645,7 +3917,8 @@ def main():
                    "families": {"launches": [fam_fwd, fam_bwd], "times": fam_times},
                    "train_prod": {"launches": [prod_fwd, prod_bwd], **prod_records},
                    "artifact": artifact_rec, "lab_rest": rest_rec, "f16_dp": f16_dp_rec,
-                   "mesh2d": tp_rec, "random": rand_rec, "op_applies": op_records}, f)
+                   "mesh2d": tp_rec, "random": rand_rec, "op_applies": op_records,
+                   "group_norm_relu": norm_records}, f)
 
     per_step = lambda recs, key: sum(TRAIN_APPLIES[(r["P"], r["C"])] * r[key] for r in recs)
     summary = [{
@@ -3744,6 +4017,7 @@ def main():
         **summed_bound(fused_t), "library_ms": None, "v3_ms": fused_v3_ms,
     }, ring_row("cheb2_window (v6, tiles 1)", REPLACES_V6, 1, "ms"),
         ring_row("cheb2_window (v7, tiles 2)", REPLACES_V7, 2, "r2_ms")]
+    summary += norm_rows(norm_records)
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.2f} s in all")
     log(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
@@ -3758,5 +4032,9 @@ if __name__ == "__main__":
         dp_rank(*map(int, sys.argv[2:5]), sys.argv[5])
     elif sys.argv[1:2] == ["tp-rank"]:   # one rank of phase 22's tensor-parallel runs
         tp_rank(*map(int, sys.argv[2:5]), sys.argv[5], *map(int, sys.argv[6:8]))
+    elif sys.argv[1:2] == ["norm"]:   # phases 1, 2 and 25 alone
+        smi = device_phase()
+        build_phase()
+        log(json.dumps({"kernels": norm_rows(norm_phase(smi))}))
     else:
         main()
