@@ -60,23 +60,15 @@ def apply_blocks(x, blocks, pad_left, pad_right, n_rows, padded=False):
     return y if padded else y[..., :n_rows, :]
 
 
-# applies of BandedMatvec, forward and backward, that took the band-gather
-# kernel; the conv route's launches count in ops.kernels.cheb_kernel
-kernel_applies = 0
-
-# the dtypes the band-gather kernel takes (cheb_kernel._DTYPE_CODES)
-KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-
-
 def on_kernel(x: torch.Tensor, op: BandedOp) -> bool:
     """Whether an apply of `op` to x takes the band-gather kernel: x is a
     non-empty CUDA tensor of a dtype the kernel takes, the op carries its
     gather packs, and it allows kernels (cfg.use_pallas) unless
-    CAPE_TPU_PALLAS overrides that either way (`ops.kernels.override`)."""
-    if x.device.type != "cuda" or x.dtype not in KERNEL_DTYPES or op.pack is None or not x.numel():
+    CAPE_TPU_PALLAS overrides that either way (`ops.kernels.allowed`)."""
+    if (x.device.type != "cuda" or x.dtype not in kernels.DTYPE_CODES or op.pack is None
+            or not x.numel()):
         return False
-    env = kernels.override()
-    return op.allow_pallas if env is None else env
+    return kernels.allowed(op.allow_pallas)
 
 
 def kernel_apply(x: torch.Tensor, blocks: torch.Tensor, pack: GatherPack, pad_left: int,
@@ -86,15 +78,14 @@ def kernel_apply(x: torch.Tensor, blocks: torch.Tensor, pack: GatherPack, pad_le
     rows_out rows. The launch goes through `cheb_kernel.band_apply`, looked
     up at call time so that a wrapper put there (bench_port's
     LaunchRecorder) sees it, with x as [B, rows, C]; it counts in
-    `kernel_applies`, the conv route's launches in cheb_kernel's own
-    counters."""
-    global kernel_applies
+    `band_apply.op` of `kernels.counts`, the conv route's launches in
+    `band_apply.conv` and `.conv_bwd`."""
     from cape_tpu_torch.ops.kernels import cheb_kernel
 
     lead = x.shape[:-2]
     x = x.reshape(-1, *x.shape[-2:]).contiguous()
     y = cheb_kernel.band_apply(x, blocks, pad_left, rows_out, pack=pack)
-    kernel_applies += 1
+    kernels.counts["band_apply.op"] += 1
     return y.reshape(*lead, *y.shape[1:])
 
 
@@ -142,7 +133,7 @@ class GatherPack:
     column -1 and value 0. (S, T, cb, pad_left) record the blocks and
     offset the pack was built for. windows[k - 1] is `row_windows` of the
     pack for k = WINDOW_TILES[k - 1] row tiles a group, and
-    window_rows[k - 1] its largest window."""
+    window_rows[k - 1] its largest window. Its tensors share one device."""
 
     cols: torch.Tensor                                 # int32 [T*rb, W]
     vals: torch.Tensor                                 # float32 [T*rb, W]
@@ -152,6 +143,11 @@ class GatherPack:
     pad_left: int
     windows: tuple[torch.Tensor, ...]                  # int32 [ceil(T / k), 2] each
     window_rows: tuple[int, ...]
+
+    def __post_init__(self):
+        if any(t.device != self.cols.device for t in (self.vals, *self.windows)):
+            raise ValueError("GatherPack: vals and windows must be on cols' device "
+                             f"{self.cols.device}")
 
     @property
     def width(self) -> int:

@@ -9,7 +9,7 @@ The routing gate is the JAX package's (`cape_tpu/ops/cheb.py`), with its
 constants. A K=2 conv on a kernel-eligible banded Laplacian is allowed a
 kernel route when its op allows it (cfg.use_pallas), unless
 CAPE_TPU_PALLAS overrides that in either direction (`ops.kernels.
-override`). An allowed conv takes the large-batch route (v3) once the
+allowed`). An allowed conv takes the large-batch route (v3) once the
 batch reaches VM_MIN_BATCH and the merged columns B*C reach VM_MIN_COLS;
 below that it takes the small-batch v2 route only when that is opted into
 (`ops.kernels.enabled()`) and the op is in the natural layout. Those
@@ -38,11 +38,6 @@ from cape_tpu_torch.parallel.mesh2d import shard_apply
 
 VM_MIN_COLS = 2048
 VM_MIN_BATCH = 32
-
-# convs the gate sent to the v3 route and to the v2 route (count meta and
-# CPU calls too)
-kernel_routes = 0
-v2_routes = 0
 
 
 def cheb_basis(x: torch.Tensor, lap, K: int) -> list[torch.Tensor]:
@@ -91,17 +86,17 @@ def cheb_conv(x: torch.Tensor, lap, weight: torch.Tensor) -> torch.Tensor:
 
 
 def _cheb_conv(x: torch.Tensor, lap, weight: torch.Tensor) -> torch.Tensor:
-    global kernel_routes, v2_routes
+    """The routing gate: its routes count in `route.v3` and `route.v2` of
+    `kernels.counts`, meta and CPU calls too."""
     K = weight.shape[0]
-    if K == 2 and x.dim() == 3 and isinstance(lap, BandedOp) and lap.pallas_eligible:
-        env = kernels.override()
-        if lap.allow_pallas if env is None else env:
-            if x.shape[0] >= VM_MIN_BATCH and x.shape[0] * x.shape[2] >= VM_MIN_COLS:
-                kernel_routes += 1
-                return cheb_kernel.cheb2_banded_v3(x, lap, weight)
-            if kernels.enabled() and not lap.padded:
-                v2_routes += 1
-                return cheb_kernel.cheb2_banded_v2(x, lap, weight)
+    if (K == 2 and x.dim() == 3 and isinstance(lap, BandedOp) and lap.pallas_eligible
+            and kernels.allowed(lap.allow_pallas)):
+        if x.shape[0] >= VM_MIN_BATCH and x.shape[0] * x.shape[2] >= VM_MIN_COLS:
+            kernels.counts["route.v3"] += 1
+            return cheb_kernel.cheb2_banded_v3(x, lap, weight)
+        if kernels.enabled() and not lap.padded:
+            kernels.counts["route.v2"] += 1
+            return cheb_kernel.cheb2_banded_v2(x, lap, weight)
     if K > 1 and weight.shape[2] < weight.shape[1]:
         return _cheb_conv_projfirst(x, lap, weight)
     acc = None

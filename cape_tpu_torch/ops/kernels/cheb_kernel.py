@@ -49,80 +49,18 @@ import torch
 import torch.nn.functional as F
 
 from cape_tpu_torch.ops.banded import WINDOW_TILES, GatherPack, apply_blocks
+from cape_tpu_torch.ops.kernels import (
+    DTYPE_CODES, SMEM_MAX, check_cuda, check_tensors, counts, raise_on, stream,
+)
 
 RB = 128
 
-# kernel launches of the conv route's band applies: the forward of
-# cheb2_banded_v3 and cheb2_banded_v2 and the backward of cheb2_banded_v3
-# (`_conv_launch` counts them at those call sites); of fused_cheb2 with a
-# group of 1 (kernel 1's case) and with a larger group (kernel 4's); of
-# banded_apply_bm; of ring_cheb2 with one row tile per block (kernel 5's
-# case) and with two (kernel 6's). The CPU/meta plain paths count in none
-# of them, and the plain BandedOp applies on band_apply count in
-# ops.banded.kernel_applies. bf16_launches and f16_launches count every
-# band_apply launch (either direction, the BandedOp applies too) on bf16
-# and f16 tensors.
-launches = 0
-bwd_launches = 0
-bf16_launches = 0
-f16_launches = 0
-fused1_launches = 0
-fused_launches = 0
-bm_launches = 0
-ring_launches = 0
-ring2_launches = 0
-
-# the dtype codes of the band-gather kernel (csrc/band_gather.cu); the fused
-# and windowed conv kernels (csrc/cheb2_fused.cu) take the first two only
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the dtypes of the fused and windowed conv kernels (csrc/cheb2_fused.cu)
 _FUSED_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _name(dtype: torch.dtype) -> str:
-    return str(dtype).removeprefix("torch.")
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
     return a.reshape(-1, a.shape[-1])
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _check_cuda(name: str, x: torch.Tensor, dtypes=_DTYPE_CODES,
-                **others: torch.Tensor | None) -> None:
-    """What every kernel wrapper checks before a launch: x is a CUDA tensor,
-    and `_check_tensors` holds."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    _check_tensors(name, x, dtypes, **others)
-
-
-def _check_tensors(name: str, x: torch.Tensor, dtypes=_DTYPE_CODES,
-                   **others: torch.Tensor | None) -> None:
-    """x is contiguous and of a dtype in `dtypes` (the kernel's), and each
-    other tensor given (not None) is contiguous, of x's dtype and on x's
-    device."""
-    if x.dtype not in dtypes:
-        names = ", ".join(_name(d) for d in dtypes)
-        raise TypeError(f"{name}: dtype {x.dtype} (kernel takes {names})")
-    for k, t in {"x": x, **others}.items():
-        if t is None:
-            continue
-        if t.dtype != x.dtype or t.device != x.device:
-            raise TypeError(f"{name}: {k} {t.dtype} on {t.device}, x {x.dtype} on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {k} must be contiguous")
-
-
-def _raise_on(name: str, lib, err: int, shapes) -> None:
-    """Raise on a failed launch; `shapes()` describes it (formatted only then,
-    off the launch's host path)."""
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed: {lib.cape_cuda_error_string(err).decode()} ({shapes()})"
-        )
 
 
 def band_apply_plain(x, blocks, pad_left: int, rows_out: int, addend=None) -> torch.Tensor:
@@ -164,19 +102,24 @@ def band_gather_plain(x, pack: GatherPack, rows_out: int, addend=None) -> torch.
     return y.to(x.dtype)
 
 
-def _check_pack(name: str, pack: GatherPack | None, blocks: torch.Tensor, pad_left: int) -> None:
-    """A launch needs the gather pack of exactly these blocks at this
-    pad_left; the wrappers never build one."""
+def _check_pack(name: str, pack: GatherPack | None, blocks: torch.Tensor, pad_left: int,
+                x: torch.Tensor) -> None:
+    """A launch (x not on the CPU or `meta`) needs the gather pack of
+    exactly these blocks at this pad_left, on x's device; the wrappers
+    never build one. A pack given to a plain version is checked against the
+    blocks too."""
     if pack is None:
+        if x.device.type in ("cpu", "meta"):
+            return
         raise ValueError(f"{name}: a kernel launch needs the op's gather pack (pack=op.pack)")
     pack.check(name, blocks, pad_left)
+    if x.is_cuda and pack.cols.device != x.device:   # the pack's tensors share one device
+        raise TypeError(f"{name}: the gather pack is on {pack.cols.device}, x on {x.device}")
 
 
 def _gather(name: str, x: torch.Tensor, pack: GatherPack, rows_out: int,
             addend: torch.Tensor | None) -> torch.Tensor:
     """Launch `csrc/band_gather.cu` on a checked CUDA x [B, rows_in, C]."""
-    if pack.cols.device != x.device or pack.vals.device != x.device:
-        raise TypeError(f"{name}: the gather pack is on {pack.cols.device}, x on {x.device}")
     B, rows_in, C = x.shape
     from cape_tpu_torch.ops.kernels.build import band_gather_lib
 
@@ -184,11 +127,11 @@ def _gather(name: str, x: torch.Tensor, pack: GatherPack, rows_out: int,
     y = torch.empty((B, rows_out, C), dtype=x.dtype, device=x.device)
     err = lib.cape_band_gather(
         x.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(),
-        None if addend is None else addend.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
-        B, rows_in, C, pack.width, rows_out, _stream(x),
+        None if addend is None else addend.data_ptr(), y.data_ptr(), DTYPE_CODES[x.dtype],
+        B, rows_in, C, pack.width, rows_out, stream(x),
     )
-    _raise_on(name, lib, err,
-              lambda: f"x {tuple(x.shape)}, pack width {pack.width}, rows_out={rows_out}")
+    raise_on(name, lib, err,
+             lambda: f"x {tuple(x.shape)}, pack width {pack.width}, rows_out={rows_out}")
     return y
 
 
@@ -202,15 +145,13 @@ def band_apply(
     launch the band-gather kernel over `pack`, the gather pack of the
     blocks (required there); CPU and meta tensors take band_apply_plain. A
     pack given is checked against the blocks on every device. A launch on
-    bf16 tensors counts in `bf16_launches`, on f16 tensors in
-    `f16_launches`; its callers count it by route (`_conv_launch`,
-    ops.banded.kernel_apply)."""
-    global bf16_launches, f16_launches
-    if pack is not None or x.device.type not in ("cpu", "meta"):
-        _check_pack("band_apply", pack, blocks, pad_left)
+    bf16 (f16) tensors counts in `band_apply.bfloat16` (`.float16`) of
+    `kernels.counts`; its callers count it by route (`band_apply.conv`,
+    `.conv_bwd`, `.op`)."""
+    _check_pack("band_apply", pack, blocks, pad_left, x)
     if x.device.type in ("cpu", "meta"):
         return band_apply_plain(x, blocks, pad_left, rows_out, addend)
-    _check_cuda("band_apply", x, addend=addend)
+    check_cuda("band_apply", x, addend=addend)
     if x.dim() != 3 or blocks.dim() != 4 or blocks.shape[2] != RB:
         raise ValueError(
             f"band_apply: x {tuple(x.shape)} must be [B, rows, C] and blocks "
@@ -223,21 +164,8 @@ def band_apply(
     if addend is not None and tuple(addend.shape) != (B, rows_out, C):
         raise ValueError(f"band_apply: addend {tuple(addend.shape)} must be [{B}, {rows_out}, {C}]")
     y = _gather("band_apply", x, pack, rows_out, addend)
-    bf16_launches += x.dtype == torch.bfloat16
-    f16_launches += x.dtype == torch.float16
-    return y
-
-
-def _conv_launch(y: torch.Tensor, backward: bool = False) -> torch.Tensor:
-    """Count a band_apply of the conv route that launched (y on the card):
-    in `bwd_launches` for the backward of cheb2_banded_v3, else in
-    `launches`. Returns y."""
-    global launches, bwd_launches
-    if y.device.type not in ("cpu", "meta"):
-        if backward:
-            bwd_launches += 1
-        else:
-            launches += 1
+    if x.dtype != torch.float32:
+        counts["band_apply.bfloat16" if x.dtype == torch.bfloat16 else "band_apply.float16"] += 1
     return y
 
 
@@ -274,7 +202,8 @@ class _Cheb2V3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w0, w1, blocks, pad_left, rows_out, pack):
-        lx = _conv_launch(band_apply(x, blocks, pad_left, rows_out, pack=pack))
+        lx = band_apply(x, blocks, pad_left, rows_out, pack=pack)
+        counts["band_apply.conv"] += x.is_cuda
         ctx.save_for_backward(x, lx, w0, w1, blocks)
         ctx.band = (pad_left, rows_out)
         ctx.pack = pack
@@ -292,8 +221,8 @@ class _Cheb2V3(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gw0 = torch.matmul(g, w0.T).contiguous()
             gw1 = torch.matmul(g, w1.T).contiguous()
-            dx = _conv_launch(band_apply(gw1, blocks, *ctx.band, addend=gw0, pack=ctx.pack),
-                              backward=True)
+            dx = band_apply(gw1, blocks, *ctx.band, addend=gw0, pack=ctx.pack)
+            counts["band_apply.conv_bwd"] += g.is_cuda
         return dx, dw0, dw1, None, None, None, None
 
 
@@ -339,7 +268,6 @@ def fused_cheb2_plain(x, blocks, pad_left: int, rows_out: int, w0, w1) -> torch.
 # of FUSED_BK channels (per dtype) through FUSED_STAGES shared-memory stages
 FUSED_BM, FUSED_STAGES = 128, 2
 FUSED_BK = {torch.float32: 32, torch.bfloat16: 64}
-SMEM_MAX = 232448   # bytes of shared memory an H100 block may have
 
 
 def _product_tile(dtype: torch.dtype, F: int) -> tuple[int, int]:
@@ -389,17 +317,16 @@ def fused_cheb2(
     tensors launch `csrc/cheb2_fused.cu` over `pack`, the gather pack of the
     blocks (required there), tiled by `fused_plan`; CPU and meta tensors
     take fused_cheb2_plain. A pack given is checked against the blocks on
-    every device. A launch counts in `fused1_launches` for a group of 1
-    (kernel 1's case), else in `fused_launches` (kernel 4's)."""
-    global fused_launches, fused1_launches
+    every device. A launch counts in `cheb2_fused.g1` of `kernels.counts`
+    for a group of 1 (kernel 1's case), else in `cheb2_fused` (kernel
+    4's)."""
     B, rows_in, C = x.shape
     if group < 1 or B % group:
         raise ValueError(f"fused_cheb2: batch {B} is not a multiple of group {group}")
-    if pack is not None or x.device.type not in ("cpu", "meta"):
-        _check_pack("fused_cheb2", pack, blocks, pad_left)
+    _check_pack("fused_cheb2", pack, blocks, pad_left, x)
     if x.device.type in ("cpu", "meta"):
         return fused_cheb2_plain(x, blocks, pad_left, rows_out, w0, w1)
-    _check_cuda("fused_cheb2", x, _FUSED_DTYPES, blocks=blocks, w0=w0, w1=w1)
+    check_cuda("fused_cheb2", x, _FUSED_DTYPES, blocks=blocks, w0=w0, w1=w1)
     if blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
         raise ValueError(f"fused_cheb2: blocks {tuple(blocks.shape)} must be [S, T, {RB}, {RB}]")
     T = blocks.shape[1]
@@ -408,8 +335,6 @@ def fused_cheb2(
         raise ValueError(f"fused_cheb2: w0 {tuple(w0.shape)}, w1 {tuple(w1.shape)} for C={C}")
     if not 0 < rows_out <= T * RB or pad_left < 0:
         raise ValueError(f"fused_cheb2: rows_out={rows_out}, pad_left={pad_left}, T={T}")
-    if pack.cols.device != x.device or pack.vals.device != x.device:
-        raise TypeError(f"fused_cheb2: the gather pack is on {pack.cols.device}, x on {x.device}")
     plan = fused_plan(x.dtype, B, rows_out, C, Fo, group, pack.width)
     if plan is None:
         raise ValueError(f"fused_cheb2: no tile of csrc/cheb2_fused.cu takes group={group} at "
@@ -420,16 +345,13 @@ def fused_cheb2(
     y = torch.empty((B, rows_out, Fo), dtype=x.dtype, device=x.device)
     err = lib.cape_cheb2_fused(
         x.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(), w0.data_ptr(), w1.data_ptr(),
-        y.data_ptr(), _DTYPE_CODES[x.dtype], B, rows_in, C, Fo, pack.width, pad_left, rows_out,
+        y.data_ptr(), DTYPE_CODES[x.dtype], B, rows_in, C, Fo, pack.width, pad_left, rows_out,
         group, plan["BM"], plan["BN"], plan["BK"], plan["stages"], plan["rows"], plan["smem"],
-        *plan["grid"][:2], _stream(x),
+        *plan["grid"][:2], stream(x),
     )
-    _raise_on("cheb2_fused", lib, err, lambda: f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
-              f"F={Fo}, group={group}, plan {plan}")
-    if group == 1:
-        fused1_launches += 1
-    else:
-        fused_launches += 1
+    raise_on("cheb2_fused", lib, err, lambda: f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
+             f"F={Fo}, group={group}, plan {plan}")
+    counts["cheb2_fused.g1" if group == 1 else "cheb2_fused"] += 1
     return y
 
 
@@ -563,12 +485,12 @@ def ring_cheb2(
     (required there), tiled by `ring_plan`; CPU and meta tensors take
     fused_cheb2_plain after the same checks. A pack given is checked
     against the blocks on every device. A shape the plan refuses raises
-    ValueError. A launch counts in `ring_launches` (one tile per block,
-    kernel 5's case) or `ring2_launches` (kernel 6's)."""
-    global ring_launches, ring2_launches
+    ValueError. A launch counts in `cheb2_window.t1` of `kernels.counts`
+    (one tile per block, kernel 5's case) or `cheb2_window.t2` (kernel
+    6's)."""
     if tiles not in WINDOW_TILES:
         raise ValueError(f"ring_cheb2: tiles={tiles} (the kernel takes {WINDOW_TILES})")
-    _check_tensors("ring_cheb2", x, _FUSED_DTYPES, blocks=blocks, w0=w0, w1=w1)
+    check_tensors("ring_cheb2", x, _FUSED_DTYPES, blocks=blocks, w0=w0, w1=w1)
     if x.dim() != 3 or blocks.dim() != 4 or tuple(blocks.shape[2:]) != (RB, RB):
         raise ValueError(
             f"ring_cheb2: x {tuple(x.shape)} must be [B, rows, C] and blocks "
@@ -584,15 +506,12 @@ def ring_cheb2(
             f"ring_cheb2: rows_out={rows_out} must lie in (0, {T * RB}] and pad_left={pad_left} "
             f"in [0, {S * RB}) (the centre tile inside the window of S={S} tiles)"
         )
-    if pack is not None or x.device.type not in ("cpu", "meta"):
-        _check_pack("ring_cheb2", pack, blocks, pad_left)
+    _check_pack("ring_cheb2", pack, blocks, pad_left, x)
     if x.device.type in ("cpu", "meta"):
         return fused_cheb2_plain(x, blocks, pad_left, rows_out, w0, w1)
     if x.device.type != "cuda":   # the tensors were checked above
         raise ValueError(f"ring_cheb2: no kernel for device {x.device}")
     windows = pack.windows[tiles - 1]
-    if any(t.device != x.device for t in (pack.cols, pack.vals, windows)):
-        raise TypeError(f"ring_cheb2: the gather pack is on {pack.cols.device}, x on {x.device}")
     plan = ring_plan(x.dtype, B, rows_out, C, Fo, tiles, pack.window_rows[tiles - 1], pack.width)
     if plan is None:
         raise ValueError(
@@ -606,16 +525,13 @@ def ring_cheb2(
     y = torch.empty((B, rows_out, Fo), dtype=x.dtype, device=x.device)
     err = lib.cape_cheb2_window(
         x.data_ptr(), pack.cols.data_ptr(), pack.vals.data_ptr(), windows.data_ptr(),
-        w0.data_ptr(), w1.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], B, rows_in, C, Fo,
+        w0.data_ptr(), w1.data_ptr(), y.data_ptr(), DTYPE_CODES[x.dtype], B, rows_in, C, Fo,
         pack.width, pad_left, rows_out, tiles, plan["BN"], plan["BK"], plan["window_rows"],
-        plan["smem"], *plan["grid"][:2], _stream(x),
+        plan["smem"], *plan["grid"][:2], stream(x),
     )
-    _raise_on("cheb2_window", lib, err, lambda: f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
-              f"F={Fo}, plan {plan}")
-    if tiles == 1:
-        ring_launches += 1
-    else:
-        ring2_launches += 1
+    raise_on("cheb2_window", lib, err, lambda: f"x {tuple(x.shape)}, blocks {tuple(blocks.shape)}, "
+             f"F={Fo}, plan {plan}")
+    counts[f"cheb2_window.t{tiles}"] += 1
     return y
 
 
@@ -627,7 +543,8 @@ class _Cheb2V2(torch.autograd.Function):
     def forward(ctx, x, w0, w1, blocks, meta, pack):
         ctx.save_for_backward(x, w0, w1, blocks)
         ctx.meta = meta
-        lx = _conv_launch(band_apply(x, blocks, meta[0], meta[2], pack=pack))
+        lx = band_apply(x, blocks, meta[0], meta[2], pack=pack)
+        counts["band_apply.conv"] += x.is_cuda
         return torch.matmul(x, w0) + torch.matmul(lx, w1)
 
     @staticmethod
@@ -668,13 +585,11 @@ def banded_apply_bm(
     outside x as zero, so pad_right only has to reach the end of the last
     window. CPU and meta tensors take banded_apply_bm_plain. A pack given
     is checked against the blocks on every device. Each launch counts in
-    `bm_launches`."""
-    global bm_launches
-    if pack is not None or x.device.type not in ("cpu", "meta"):
-        _check_pack("banded_apply_bm", pack, blocks, pad_left)
+    `band_apply_bm` of `kernels.counts`."""
+    _check_pack("banded_apply_bm", pack, blocks, pad_left, x)
     if x.device.type in ("cpu", "meta"):
         return banded_apply_bm_plain(x, blocks, pad_left, pad_right, n_rows)
-    _check_cuda("banded_apply_bm", x)
+    check_cuda("banded_apply_bm", x)
     if x.dim() != 3 or blocks.dim() != 4 or blocks.shape[2] != RB:
         raise ValueError(
             f"banded_apply_bm: x {tuple(x.shape)} must be [B, rows, C] and blocks "
@@ -689,5 +604,5 @@ def banded_apply_bm(
             f"for {rows_in} rows and blocks {tuple(blocks.shape)}"
         )
     y = _gather("banded_apply_bm", x, pack, n_rows, None)
-    bm_launches += 1
+    counts["band_apply_bm"] += 1
     return y

@@ -16,7 +16,8 @@ them, and their cotangents are zero.
 `group_norm_relu` is the CMR decoder's relu(group_norm(...)). On the CPU
 and `meta` it is exactly that; on a CUDA tensor it is one launch of the
 hand-written kernel `csrc/group_norm_relu.cu` forward and two backward
-(`_GroupNormReLU`) in place of ~19 and ~27 operators, or it raises.
+(`_GroupNormReLU`) in place of ~19 and ~27 operators, or it raises;
+each launch counts in `group_norm_relu` of `ops.kernels.counts`.
 `group_norm` stays the plain version, and the tests' reference.
 """
 
@@ -26,8 +27,8 @@ import functools
 
 import torch
 
-from cape_tpu_torch.ops.kernels.cheb_kernel import (
-    _DTYPE_CODES, SMEM_MAX, _check_cuda, _raise_on, _stream,
+from cape_tpu_torch.ops.kernels import (
+    DTYPE_CODES, SMEM_MAX, check_cuda, counts, raise_on, stream,
 )
 
 
@@ -75,10 +76,6 @@ def group_norm(
     out = xg.reshape(B, C, V) * gamma.to(x.dtype)[None, :, None] + beta.to(x.dtype)[None, :, None]
     return out.transpose(1, 2)
 
-
-# kernel launches of group_norm_relu on CUDA (csrc/group_norm_relu.cu): one
-# a forward, two a backward; the plain version on the CPU counts none
-launches = 0
 
 # how csrc/group_norm_relu.cu cuts a norm (`norm_plan`): at most 256 threads
 # a block and 8 blocks a cluster; a block's part of x (and dy) aims at 64 KB
@@ -170,9 +167,8 @@ class _GroupNormReLU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, num_groups, eps, n_valid):
-        global launches
         x = x.contiguous()
-        _check_cuda("group_norm_relu", x)
+        check_cuda("group_norm_relu", x)
         if x.dim() != 3:
             raise ValueError(f"group_norm_relu: x {tuple(x.shape)} must be [B, V, C]")
         B, V, C = x.shape
@@ -180,7 +176,7 @@ class _GroupNormReLU(torch.autograd.Function):
         nv = V if n_valid is None else n_valid
         if not 0 < nv <= V:
             raise ValueError(f"group_norm_relu: n_valid={n_valid} for {V} rows")
-        code = _DTYPE_CODES[x.dtype]
+        code = DTYPE_CODES[x.dtype]
         g, b = _param(gamma, x, C), _param(beta, x, C)
         y = torch.empty_like(x)
         stats = torch.empty((2, B, G), dtype=torch.float32, device=x.device)  # mean, rstd
@@ -188,17 +184,16 @@ class _GroupNormReLU(torch.autograd.Function):
         s = stats.data_ptr()
         lib, fwd, _ = _entries()
         err = fwd(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), s, s + 4 * B * G, code,
-                  B, V, C, G, nv, *plan, eps, _stream(x))
-        _raise_on("group_norm_relu", lib, err,
-                  lambda: f"x {tuple(x.shape)} {x.dtype}, G={G}, n_valid={nv}, plan {plan}")
-        launches += 1
+                  B, V, C, G, nv, *plan, eps, stream(x))
+        raise_on("group_norm_relu", lib, err,
+                 lambda: f"x {tuple(x.shape)} {x.dtype}, G={G}, n_valid={nv}, plan {plan}")
+        counts["group_norm_relu"] += 1
         ctx.save_for_backward(x, g, b, stats)
         ctx.conf = (code, G, nv, gamma.dtype, beta.dtype)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        global launches
         x, g, b, stats = ctx.saved_tensors
         code, G, nv, g_dtype, b_dtype = ctx.conf
         B, V, C = x.shape
@@ -211,10 +206,10 @@ class _GroupNormReLU(torch.autograd.Function):
         lib, _, bwd = _entries()
         err = bwd(x.data_ptr(), dy.data_ptr(), g.data_ptr(), b.data_ptr(), s, s + 4 * B * G,
                   dx.data_ptr(), buf.data_ptr(), d, d + 4 * C, code, B, V, C, G, nv, *plan,
-                  _stream(x))
-        _raise_on("group_norm_relu_bwd", lib, err,
-                  lambda: f"x {tuple(x.shape)} {x.dtype}, G={G}, n_valid={nv}, plan {plan}")
-        launches += 2
+                  stream(x))
+        raise_on("group_norm_relu_bwd", lib, err,
+                 lambda: f"x {tuple(x.shape)} {x.dtype}, G={G}, n_valid={nv}, plan {plan}")
+        counts["group_norm_relu"] += 2
         return dx, buf[B, 0].to(g_dtype), buf[B, 1].to(b_dtype), None, None, None
 
 
@@ -230,7 +225,7 @@ def group_norm_relu(
     meta tensors take exactly that plain version; a CUDA tensor launches
     `csrc/group_norm_relu.cu` (`_GroupNormReLU`: f32 statistics and
     arithmetic, one rounding to x's dtype; float32, bfloat16 or float16),
-    counted in `launches`, or raises."""
+    counted in `group_norm_relu` of `kernels.counts`, or raises."""
     if x.device.type in ("cpu", "meta"):
         return torch.relu(group_norm(x, gamma, beta, num_groups, eps, n_valid=n_valid))
     return _GroupNormReLU.apply(x, gamma, beta, num_groups, eps, n_valid)

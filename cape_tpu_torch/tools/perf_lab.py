@@ -614,7 +614,7 @@ def cmd_serve(args):
     kernel launches it made."""
     from cape_tpu_torch.apps.inference import InferenceEngine
     from cape_tpu_torch.data.synthetic import synthetic_bodydata
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops.kernels import counts
     from cape_tpu_torch.tools.flagship import flagship_setup
 
     cfg, model, ctx = flagship_setup(args.dtype, args.device, name="perflab_serve",
@@ -641,9 +641,9 @@ def cmd_serve(args):
                              "reconstruct": reconstruct}, calls=args.inner)
         engine = InferenceEngine(model, ctx, B, device=args.device)
         host = [a.float().cpu().numpy() for a in (zt, y, y2)]
-        before = cheb_kernel.launches
+        before = counts["band_apply.conv"]
         engine.decode(*host)
-        launches = cheb_kernel.launches - before
+        launches = counts["band_apply.conv"] - before
         lats = []
         for i in range(3 + 16):
             t0 = time.perf_counter()

@@ -115,8 +115,8 @@ result line):
      apps.main.run, as phase 10. The decoder's 24 group norms run the norm
      kernel on both routes (no CUDA tensor takes the plain norm), so the
      routes' comparisons hold the band kernels and the JAX golden holds
-     the norm kernel: each serve and train run checks ops.norm.launches,
-     24 per decode call and 72 a step (96 with remat, whose backward runs
+     the norm kernel: each serve and train run checks its launches
+     (`norm_launches`), 24 per decode call and 72 a step (96 with remat, whose backward runs
      the decoder's blocks again). (2) default_config.yaml (residual
      encoder, CMR decoder): encode (15 launches, no norm) and decode (7;
      24 norm launches) held to the golden, two GAN steps (25 + 25 launches
@@ -138,7 +138,7 @@ result line):
      the same inputs, and the bounds derived from the difference), each
      main path with the counts at 0 just before and read just after.
      (a) bf16 compute at batch 32: two GAN steps on the kernel route, 17 +
-     17 band_apply launches a step, all bf16 (`bf16_launches`), and on the
+     17 band_apply launches a step, all bf16 (`band_apply.bfloat16`), and on the
      plain route with none; each held to JAX's bf16 steps (every metric
      within its bound and of JAX's dtype, each leaf's step-2 update summary
      within its player's bound) and to each other by bounds of their own
@@ -188,7 +188,7 @@ result line):
      decode call 9 at 64 (the gate routes C >= 32 there), none at 1 and 16.
      trace at batch 32 and 16, bf16 and f32: band_gather_kernel named in
      the profiler's trace with 17 + 17 a step at 32 (0 at 16) beside the
-     plain BandedOp applies (kernel_applies), the counts agreeing, device
+     plain BandedOp applies (band_apply.op), the counts agreeing, device
      ms a step within the host window. chain --batch 32, both dtypes: its
      arms within 5e-2 (the lab checks), band_apply launched both ways. http
      (npz at 50 reps, json at 5) and concurrency (16 threads, 3 s) against
@@ -259,7 +259,7 @@ result line):
      32 and a 2-D [V, 1], pools, unpools, the discriminator's, the edge
      operator), forward and transpose, held to apply_blocks (f32, 1e-5 *
      max|ref|) and timed against it in turns, with the bound of each;
-     their launches count in kernel_applies only.
+     their launches count in band_apply.op only.
  25. norm (after phase 24): the fused group norm + ReLU
      (csrc/group_norm_relu.cu, ops.norm.group_norm_relu; it replaces no
      TPU kernel) at every distinct norm shape of the GraphCMR decoder at
@@ -278,14 +278,14 @@ result line):
      (`device_ms`: the profiler's kernel durations) beside the bytes
      bound; and the host's split of a call (`norm_host_split`).
      `python3 chip_smoke.py norm` runs phases 1, 2 and 25 alone.
-Launch counts (`read_counts`): `launches` and `bwd_launches` are the conv
-route's band_apply launches; `kernel_applies` the plain BandedOp applies
-on the same kernel, which take it wherever use_pallas puts the conv route
-(each `only` that allows them names them); `bf16_launches` and
-`f16_launches` count both (`half_launches`).
-The norm kernel counts in ops.norm.launches, outside COUNTS (zero_counts
-zeroes it; `norm_launches` checks it): the GraphCMR decoder launches it
-on either route, 24 times a decode forward and 72 a train step.
+Launch counts are `cape_tpu_torch.ops.kernels.counts` (`read_counts`):
+`band_apply.conv` and `.conv_bwd` are the conv route's band_apply
+launches; `band_apply.op` the plain BandedOp applies on the same kernel,
+which take it wherever use_pallas puts the conv route (SERVED, STEPPED);
+`band_apply.bfloat16` and `.float16` count both (`half_launches`). The
+norm kernel's `group_norm_relu` is left out of read_counts
+(`norm_launches` checks it): the GraphCMR decoder launches it on either
+route, 24 times a decode forward and 72 a train step.
 Every timed record carries `bound_ms`, the least time the card could take
 for the same work (see `bound`). The per-case records go to
 build/chip_smoke_kernels.json. The last two lines are a JSON summary of
@@ -294,6 +294,7 @@ the kernels and the device line.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -312,6 +313,8 @@ import urllib.request
 
 import numpy as np
 import torch
+
+from bench_port.roofline import _name, apply_bound, bound, conv_bound, summed_bound
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PRESET = os.path.join(ROOT, "configs", "CAPE-affineconv_nz64_pose32_clotype32_male.yaml")
@@ -366,7 +369,7 @@ CONCAT_DECODE = [(896, 576), (896, 320), (1792, 320), (1792, 192), (3456, 192), 
 TRAIN_APPLIES = {**{pc: 2 for pc in ON_PATH}, PRED: 3}
 FWD_PER_STEP = BWD_PER_STEP = sum(TRAIN_APPLIES.values())   # 17
 # the plain BandedOp applies of a flagship train step at batch 32 that take
-# the band-gather kernel (ops.banded.kernel_applies), forward and backward
+# the band-gather kernel (band_apply.op), forward and backward
 OP_APPLIES_PER_STEP = 120
 # phase 24's plain BandedOp applies, one of each operator kind of the
 # padded flagship context: (label, context field, index or None, batch,
@@ -408,11 +411,6 @@ FUSED_CONVS = {
 # the fused phase's bf16 check: the kernel's mean error at most this share
 # of the mean distance of a control that drops one of its bf16 numerics
 CONTROL_SHARE = 0.05
-# the H100 SXM's published peaks at its full 700 W (NVIDIA's data sheet):
-# device memory, and per input dtype f32 outside the tensor cores and dense
-# bf16 on them
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # the ring phase's autograd main path: [B, P, C] -> F, padded, f32
 RING_MAIN = (32, 6912, 64, 64)
 # the lab's subcommands, as `python -m cape_tpu_torch.tools.perf_lab` takes them
@@ -438,21 +436,10 @@ def log(*a):
     print(*a, flush=True)
 
 
-# the launch counts of the kernel wrappers (cape_tpu_torch.ops.kernels.cheb_kernel),
-# and `kernel_applies`, the plain BandedOp applies on the band-gather kernel
-# (cape_tpu_torch.ops.banded); bf16_launches and f16_launches count those too
-COUNTS = ("launches", "bwd_launches", "bf16_launches", "f16_launches", "fused1_launches",
-          "fused_launches", "bm_launches", "ring_launches", "ring2_launches")
-
-
 def zero_counts() -> None:
-    from cape_tpu_torch.ops import banded, norm
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops.kernels import counts
 
-    for k in COUNTS:
-        setattr(cheb_kernel, k, 0)
-    banded.kernel_applies = 0
-    norm.launches = 0
+    counts.clear()
 
 
 # the norm kernel's launches of the GraphCMR decoder: 24 norms, one launch
@@ -461,34 +448,41 @@ NORM_PER_DECODE, NORM_PER_STEP = 24, 72
 
 
 def norm_launches(name: str, want: int) -> int:
-    """The norm kernel's launches (ops.norm.launches) since zero_counts,
-    which must be `want`."""
-    from cape_tpu_torch.ops import norm
+    """The norm kernel's launches since zero_counts, which must be `want`."""
+    from cape_tpu_torch.ops.kernels import counts
 
-    log(f"{name}: group_norm_relu launches {norm.launches} (expected {want})")
-    if norm.launches != want:
-        raise AssertionError(f"{name}: {norm.launches} norm kernel launches, expected {want}")
-    return norm.launches
+    got = counts["group_norm_relu"]
+    log(f"{name}: group_norm_relu launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{name}: {got} norm kernel launches, expected {want}")
+    return got
 
 
-def read_counts() -> dict:
-    from cape_tpu_torch.ops import banded
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+def read_counts() -> collections.Counter:
+    """The band kernels' launches since zero_counts: `kernels.counts`
+    without the conv gate's routes and the norm kernel (`norm_launches`)."""
+    from cape_tpu_torch.ops.kernels import counts
 
-    return {**{k: getattr(cheb_kernel, k) for k in COUNTS},
-            "kernel_applies": banded.kernel_applies}
+    return collections.Counter({k: v for k, v in counts.items()
+                                if k != "group_norm_relu" and not k.startswith("route.")})
+
+
+# what a served call (SERVED) and a train step (STEPPED) may launch on the
+# conv route: its band applies and the plain BandedOp applies
+SERVED = ("band_apply.conv", "band_apply.op")
+STEPPED = (*SERVED, "band_apply.conv_bwd")
 
 
 def only(counts: dict, *names) -> bool:
-    """No kernel but `names` launched (`kernel_applies`, the plain BandedOp
+    """No kernel but `names` launched (`band_apply.op`, the plain BandedOp
     applies, among them only where named)."""
     return not any(v for k, v in counts.items() if k not in names)
 
 
 def half_launches(counts: dict, conv: int) -> int:
-    """What bf16_launches (f16_launches) must read when every launch was
+    """What band_apply.bfloat16 (.float16) must read when every launch was
     bf16 (f16): the conv route's `conv` and every plain apply's."""
-    return conv + counts.get("kernel_applies", 0)
+    return conv + counts["band_apply.op"]
 
 
 def device_phase() -> str:
@@ -538,61 +532,11 @@ def f16_ulp(v: float) -> float:
     return 2.0 ** (math.floor(math.log2(v)) - 10)
 
 
-def _name(dtype) -> str:
-    return str(dtype).replace("torch.", "")
-
-
-def bound(nbytes: float, flops: float, dtype) -> dict:
-    """The least time the card could take for a call: the larger of the
-    bytes it must move over the memory rate and its operations over the peak
-    rate for its dtype (`HBM_BYTES_PER_S`, `PEAK_FLOP_PER_S`); which of the
-    two sets it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOP_PER_S[_name(dtype)] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def _nnz(blocks) -> int:
-    return int((blocks != 0).sum().item())
-
-
-def apply_bound(blocks, B: int, rows_in: int, rows_out: int, C: int, dtype, addend=False) -> dict:
-    """`bound` of a band apply y = M x (+ r): x read once, y written once (r
-    read once), the band as its non-zero values with a 4-byte column index
-    each; 2 operations per non-zero entry, sample and channel (and one add
-    per element of r). `bytes` is that byte count."""
-    el = torch.empty((), dtype=dtype).element_size()
-    rows = rows_in + rows_out * (2 if addend else 1)
-    nnz = _nnz(blocks)
-    nbytes = el * B * C * rows + nnz * (el + 4)
-    return {**bound(nbytes, 2 * nnz * B * C + (B * rows_out * C if addend else 0), dtype),
-            "bytes": nbytes}
-
-
 def rate(rec: dict) -> str:
     """A timed band apply's achieved rate: its bound's bytes over its time,
     and its share of the bound."""
     return (f"{rec['bytes'] / rec['ms'] / 1e6:.0f} GB/s, "
             f"{rec['bound_ms'] / rec['ms']:.1%} of the bound")
-
-
-def conv_bound(blocks, B: int, rows_in: int, rows_out: int, C: int, F: int, dtype) -> dict:
-    """`bound` of the fused K=2 conv: x read once, y written once, w0 and w1
-    and the band (as in apply_bound) read once; the band sum (2 per non-zero
-    entry, sample and channel) and both projections (4 C F per output row
-    and sample)."""
-    el = torch.empty((), dtype=dtype).element_size()
-    nnz = _nnz(blocks)
-    return bound(el * (B * rows_in * C + B * rows_out * F + 2 * C * F) + nnz * (el + 4),
-                 2 * nnz * B * C + 4 * B * rows_out * C * F, dtype)
-
-
-def summed_bound(records, weight=lambda r: 1) -> dict:
-    """The bounds of several calls summed, set by what sets most of the sum."""
-    by = {"bytes": 0.0, "operations": 0.0}
-    for r in records:
-        by[r["bound_by"]] += weight(r) * r["bound_ms"]
-    return {"bound_ms": sum(by.values()), "bound_by": max(by, key=by.get)}
 
 
 def csr_operator(blocks, pad_left: int, rows_in: int, rows_out: int) -> torch.Tensor:
@@ -934,6 +878,7 @@ def ring_phase(ctx, smi):
     backward. Returns the records and the main path's counts."""
     from cape_tpu_torch.ops.banded import WINDOW_TILES
     from cape_tpu_torch.ops.cheb import cheb_conv
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.ops.kernels import cheb_kernel as ck
     from cape_tpu_torch.tools.perf_lab import time_routes
 
@@ -1040,7 +985,7 @@ def ring_phase(ctx, smi):
     def value_and_grads(fn):
         xg, wg = x.clone().requires_grad_(), W.clone().requires_grad_()
         y = fn(xg, wg)
-        forward = (ck.ring_launches, ck.ring2_launches)
+        forward = (kernels.counts["cheb2_window.t1"], kernels.counts["cheb2_window.t2"])
         dx, dw = torch.autograd.grad(y, (xg, wg), g)
         torch.cuda.synchronize()
         return (y, dx, dw), forward
@@ -1055,11 +1000,11 @@ def ring_phase(ctx, smi):
                     a.detach().cpu().numpy(), b.detach().cpu().numpy(), rel=1e-5)
         counts[f"{entry} forward"] = forward
     after = read_counts()
-    counts.update(cheb2_ring=after["ring_launches"], cheb2_ring2=after["ring2_launches"])
+    counts.update(cheb2_ring=after["cheb2_window.t1"], cheb2_ring2=after["cheb2_window.t2"])
     log(f"ring main path: launches {json.dumps(counts)}; phase {time.perf_counter() - t_phase:.2f} s")
     if (counts["cheb2_banded_v6 forward"] != (1, 0) or counts["cheb2_banded_v7 forward"] != (1, 1)
             or counts["cheb2_ring"] != 1 or counts["cheb2_ring2"] != 1
-            or not only(after, "ring_launches", "ring2_launches")):
+            or not only(after, "cheb2_window.t1", "cheb2_window.t2")):
         raise AssertionError(f"ring main path: launches {counts}, expected one of each ring "
                              "kernel in the forwards and none in the backwards")
     return records, counts
@@ -1071,7 +1016,7 @@ def op_apply_phase(ctx, smi):
     operator kind (OP_APPLIES), forward and transpose: held to apply_blocks
     (f32, 1e-5 * max|ref|), timed against it in turns (time_routes), with
     the bound of each (apply_bound); every launch counted in
-    kernel_applies and in no conv-route counter. Returns the records."""
+    band_apply.op and in no conv-route key. Returns the records."""
     from cape_tpu_torch.ops.banded import apply_blocks, kernel_apply
     from cape_tpu_torch.tools.perf_lab import time_routes
 
@@ -1108,8 +1053,8 @@ def op_apply_phase(ctx, smi):
         records.append(rec)
     counts = read_counts()
     log(f"op applies: counts {json.dumps(counts)}; phase {time.perf_counter() - t_phase:.2f} s")
-    if not counts["kernel_applies"] or not only(counts, "kernel_applies"):
-        raise AssertionError(f"op applies: counts {counts}, expected kernel_applies only")
+    if not counts["band_apply.op"] or not only(counts, "band_apply.op"):
+        raise AssertionError(f"op applies: counts {counts}, expected band_apply.op only")
     return records
 
 
@@ -1138,7 +1083,7 @@ def norm_phase(smi):
     bound: x read and y written forward, x and dy read and dx written
     backward; and the host's split of a call (norm_host_split). Returns the
     records."""
-    from cape_tpu_torch.ops import norm
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.ops.norm import group_norm, group_norm_relu, norm_plan
     from cape_tpu_torch.tools.perf_lab import time_routes
 
@@ -1152,7 +1097,7 @@ def norm_phase(smi):
         return y, grads, (y, *grads())
 
     records = []
-    before = norm.launches
+    before = kernels.counts["group_norm_relu"]
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for V, n_valid, C in NORM_SHAPES:
             B = NORM_B
@@ -1218,7 +1163,7 @@ def norm_phase(smi):
                         f"{rec[d]['bound_ms'] / t['device_ms']:.1%} of it on the device")
             log("group_norm_relu vs plain " + json.dumps(rec))
             records.append(rec)
-    log(f"norm: {norm.launches - before} launches; phase {time.perf_counter() - t_phase:.2f} s")
+    log(f"norm: {kernels.counts['group_norm_relu'] - before} launches; phase {time.perf_counter() - t_phase:.2f} s")
     records.append({"host_split": norm_host_split(smi)})
     return records
 
@@ -1233,8 +1178,7 @@ def norm_host_split(smi, shape=(16, 6912, 6890, 32), calls: int = 200) -> dict:
     (_GroupNormReLU.backward on the graph's node) and its ctypes entry
     alone; and of one small aten operator, the unit of the plain version's
     cost. Returns µs a call."""
-    from cape_tpu_torch.ops import norm
-    from cape_tpu_torch.ops.kernels.cheb_kernel import _stream
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.ops.norm import _GroupNormReLU, _entries, group_norm_relu, norm_plan
 
     B, V, n_valid, C = shape
@@ -1250,11 +1194,11 @@ def norm_host_split(smi, shape=(16, 6912, 6890, 32), calls: int = 200) -> dict:
     out, dx = torch.empty_like(x), torch.empty_like(x)
     stats = torch.empty((2, B, G), device="cuda")
     buf = torch.empty((B + 1, 2, C), device="cuda")
-    s, d, stream = stats.data_ptr(), buf.data_ptr() + 8 * B * C, _stream(x)
+    s, d, stream = stats.data_ptr(), buf.data_ptr() + 8 * B * C, kernels.stream(x)
     fplan = norm_plan(torch.float32, B, V, C, G, False, True)
     bplan = norm_plan(torch.float32, B, V, C, G, True, True)
     one = torch.zeros(1, device="cuda")
-    before = norm.launches
+    before = kernels.counts["group_norm_relu"]
 
     def host_us(fn):
         fn()
@@ -1282,7 +1226,7 @@ def norm_host_split(smi, shape=(16, 6912, 6890, 32), calls: int = 200) -> dict:
         }
     split["backward_grad"] = host_us(
         lambda: torch.autograd.grad(y, (x, g, b), dy, retain_graph=True))
-    split["launches"] = norm.launches - before
+    split["launches"] = kernels.counts["group_norm_relu"] - before
     log(f"group_norm_relu host split [{B},{V},{C}] f32, µs a call [{smi}]: "
         + ", ".join(f"{k} {v:.1f}" for k, v in split.items() if k != "launches"))
     return split
@@ -1339,7 +1283,6 @@ def lab_phase(smi):
     lines and the counts."""
     from contextlib import redirect_stdout
 
-    from cape_tpu_torch.ops.kernels import cheb_kernel as ck
     from cape_tpu_torch.tools import perf_lab
 
     lines = []
@@ -1353,9 +1296,7 @@ def lab_phase(smi):
         for text in buf.getvalue().splitlines():
             log(f"lab {' '.join(argv)} [{smi}]: {text}")
             lines.append(json.loads(text))
-    counts = {"band_apply": ck.launches, "band_apply_bwd": ck.bwd_launches,
-              "cheb2_fused_g1": ck.fused1_launches, "cheb2_fused": ck.fused_launches,
-              "band_apply_bm": ck.bm_launches}
+    counts = read_counts()
     log(f"lab: {time.perf_counter() - t0:.2f} s, kernel launches {json.dumps(counts)}")
     for line in lines:
         dtype = next(line[k] for k in ("conv", "layout", "fuse", "bmapply") if k in line)
@@ -1363,7 +1304,7 @@ def lab_phase(smi):
         for k, v in line.items():
             if k.startswith("max_rel_err") and not 0.0 <= v <= limit:
                 raise AssertionError(f"lab {k} = {v} exceeds {limit}: {line}")
-    for k in ("band_apply", "cheb2_fused_g1", "cheb2_fused", "band_apply_bm"):
+    for k in ("band_apply.conv", "cheb2_fused.g1", "cheb2_fused", "band_apply_bm"):
         if counts[k] == 0:
             raise AssertionError(f"the lab launched no {k} kernel: {counts}")
     return lines, counts
@@ -1455,8 +1396,8 @@ def lab_rest_phase(model, ctx, smi):
                 log(f"{tag} {' '.join(argv)} [{smi}]: {text}")
         counts = read_counts()
         seconds = time.perf_counter() - t0
-        fwd += counts["launches"]
-        bwd += counts["bwd_launches"]
+        fwd += counts["band_apply.conv"]
+        bwd += counts["band_apply.conv_bwd"]
         log(f"{tag} {' '.join(argv)}: {seconds:.2f} s, counts {json.dumps(counts)}")
         rec["runs"].append({"argv": argv, "seconds": seconds, "counts": counts,
                             "lines": [json.loads(t) for t in buf.getvalue().splitlines()
@@ -1466,8 +1407,8 @@ def lab_rest_phase(model, ctx, smi):
     t_phase = time.perf_counter()
     # parts: rows 2 and 2b; each part's output within 1e-4 of the plain route's
     parts, counts = run(["parts", "--batch", "32"])
-    if not (counts["launches"] and counts["bwd_launches"]) or not only(
-            counts, "launches", "kernel_applies", "bwd_launches"):
+    if (not (counts["band_apply.conv"] and counts["band_apply.conv_bwd"])
+            or not only(counts, *STEPPED)):
         raise AssertionError(f"parts --batch 32: {counts}: expected rows 2 and 2b only")
     for name, r in parts.items():
         if not r["max_rel_err"] <= 1e-4:
@@ -1480,10 +1421,10 @@ def lab_rest_phase(model, ctx, smi):
             line, counts = run(["step", "--batch", str(batch), "--dtype", dtype,
                                 "--k", str(LAB_STEP_K)])
             per = FWD_PER_STEP * steps if batch == 32 else 0
-            want = {"launches": per, "bwd_launches": per,
-                    "bf16_launches": half_launches(counts, 2 * per) if dtype == "bfloat16" else 0}
+            want = {"band_apply.conv": per, "band_apply.conv_bwd": per, "band_apply.bfloat16":
+                    half_launches(counts, 2 * per) if dtype == "bfloat16" else 0}
             if (any(counts[k] != v for k, v in want.items())
-                    or not only(counts, *want, "kernel_applies")):
+                    or not only(counts, *want, "band_apply.op")):
                 raise AssertionError(f"step --batch {batch} {dtype}: {counts}, expected {want} "
                                      f"over {steps} steps")
             rec["step_ms"][f"{dtype} b{batch}"] = line["step_ms"]
@@ -1495,7 +1436,7 @@ def lab_rest_phase(model, ctx, smi):
         if line["launches_per_decode_call"] != want:
             raise AssertionError(f"serve batch {line['batch']}: "
                                  f"{line['launches_per_decode_call']} launches, expected {want}")
-    if not counts["launches"] or not only(counts, "launches", "kernel_applies", "bf16_launches"):
+    if not counts["band_apply.conv"] or not only(counts, *SERVED, "band_apply.bfloat16"):
         raise AssertionError(f"serve: {counts}")
     # trace: the band-gather kernel named, 17 + 17 a step at batch 32 and the
     # plain BandedOp applies
@@ -1507,9 +1448,9 @@ def lab_rest_phase(model, ctx, smi):
         n_steps = perf_lab.TRACE_WARMUP + 2 * perf_lab.TRACE_STEPS   # untraced, then traced
         per = FWD_PER_STEP if batch == 32 else 0
         named = att["family_counts"].get("band_gather_kernel", 0)
-        applies = counts["kernel_applies"] / n_steps   # the plain BandedOp applies
-        if (named != 2 * per + applies or counts["launches"] != per * n_steps
-                or counts["bwd_launches"] != per * n_steps):
+        applies = counts["band_apply.op"] / n_steps   # the plain BandedOp applies
+        if (named != 2 * per + applies or counts["band_apply.conv"] != per * n_steps
+                or counts["band_apply.conv_bwd"] != per * n_steps):
             raise AssertionError(f"trace --batch {batch} {dtype}: band_gather_kernel {named} a "
                                  f"step, counts {counts}; expected {per} + {per} a step and "
                                  f"{applies} op applies")
@@ -1525,7 +1466,7 @@ def lab_rest_phase(model, ctx, smi):
     shutil.rmtree(trace_dir, ignore_errors=True)
     # chain: both layouts' arms within 5e-2 of batch-major (the lab raises)
     _, counts = run(["chain", "--batch", "32", "--dtype", "both"])
-    if not (counts["launches"] and counts["bwd_launches"]):
+    if not (counts["band_apply.conv"] and counts["band_apply.conv_bwd"]):
         raise AssertionError(f"chain --batch 32: no band apply launched: {counts}")
     # http and concurrency against a live port server of the flagship at batch 32
     engine = InferenceEngine(model, ctx, 32)
@@ -1551,7 +1492,7 @@ def lab_rest_phase(model, ctx, smi):
                     rec[f"http {wire}"], c_http = run(["http", "--url", client.base_url,
                                                        "--batch", "32", "--wire", wire,
                                                        "--reps", reps])
-                    launched += c_http["launches"]
+                    launched += c_http["band_apply.conv"]
             conc, c_conc = run(["concurrency", "--url", client.base_url, "--threads", "16",
                                 "--seconds", "3"])
         finally:
@@ -1561,7 +1502,7 @@ def lab_rest_phase(model, ctx, smi):
             raise AssertionError(f"concurrency ({mode}): {conc['errors']} of "
                                  f"{conc['requests'] + conc['errors']} requests failed")
         calls = dict(engine.calls)
-        launched += c_conc["launches"]
+        launched += c_conc["band_apply.conv"]
         if launched != 7 * (calls["decode"] + calls["encode"]):
             raise AssertionError(f"http/concurrency ({mode}): {launched} launches for {calls}")
         rec[f"concurrency {mode}"] = conc
@@ -1579,7 +1520,8 @@ def lab_rest_phase(model, ctx, smi):
                        "--workdir", workdir], main=endurance.main, tag="endurance")
     n_steps = out["steps"]
     want = (FWD_PER_STEP * n_steps + FWD_PER_EVAL * math.ceil(100 / 32), BWD_PER_STEP * n_steps)
-    if (counts["launches"], counts["bwd_launches"]) != want or not out["checkpoints_kept"]:
+    if ((counts["band_apply.conv"], counts["band_apply.conv_bwd"]) != want
+            or not out["checkpoints_kept"]):
         raise AssertionError(f"endurance: {out}, counts {counts}, expected launches {want}")
     rec["endurance"] = out
     shutil.rmtree(workdir, ignore_errors=True)
@@ -1764,7 +1706,7 @@ def gan_steps(cfg, c, batches, eps, spe, golden, dtypes: dict | None = None,
     band_apply (forward, backward) launches per step); fills `dtypes`, if
     given, with each metric's dtype name."""
     from cape_tpu_torch.models.cape import CAPE
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops.kernels import counts as launched
     from cape_tpu_torch.train.optim import Optimizer
     from cape_tpu_torch.train.step import TrainState, train_step
 
@@ -1776,10 +1718,10 @@ def gan_steps(cfg, c, batches, eps, spe, golden, dtypes: dict | None = None,
     names = [str(k) for k in golden["metric_names"]]
     metrics, counts = [], []
     for batch, e in zip(batches, eps):
-        f0, b0 = cheb_kernel.launches, cheb_kernel.bwd_launches
+        f0, b0 = launched["band_apply.conv"], launched["band_apply.conv_bwd"]
         m, updates = train_step(state, c, batch, e)
         torch.cuda.synchronize()
-        counts.append((cheb_kernel.launches - f0, cheb_kernel.bwd_launches - b0))
+        counts.append((launched["band_apply.conv"] - f0, launched["band_apply.conv_bwd"] - b0))
         metrics.append({k: float(m[k]) for k in names})
         if dtypes is not None:
             dtypes.update({k: _name(m[k].dtype) for k in names})
@@ -1832,9 +1774,9 @@ def train_phase(cfg, ctx, ctx_plain, smi):
     batches, spe = golden_batches(golden, ctx.perm0)
     runs = {}
     for route, c in (("kernel", ctx), ("plain", ctx_plain)):
-        applies = read_counts()["kernel_applies"]
+        applies = read_counts()["band_apply.op"]
         state, metrics, updates, counts = gan_steps(cfg, c, batches, eps, spe, golden)
-        applies = read_counts()["kernel_applies"] - applies
+        applies = read_counts()["band_apply.op"] - applies
         log(f"train step, {route} route: band_apply launches (forward, backward) per step "
             f"{counts}, plain BandedOp applies on the kernel in the 2 steps {applies}; step 1 "
             + " ".join(f"{k}={v:.6g}" for k, v in metrics[0].items()))
@@ -1893,7 +1835,7 @@ def run_phase(cfg, golden=None):
         torch.cuda.synchronize()
         after = read_counts()
         trainer, calls = result.trainer, dict(result.demos.engine.calls)
-        counts = (after["launches"], after["bwd_launches"])
+        counts = (after["band_apply.conv"], after["band_apply.conv_bwd"])
         steps = trainer.state.step
         evals = run_cfg.num_epochs   # one val batch per epoch
         # the DemoSuite: test_model's encode and decode call, run()'s ten decodes
@@ -1906,7 +1848,7 @@ def run_phase(cfg, golden=None):
             f"(forward, backward) {counts}; all counts {json.dumps(after)}; test_model "
             + json.dumps(result.test))
         if (steps != 2 or counts != want
-                or not only(after, "launches", "kernel_applies", "bwd_launches")):
+                or not only(after, *STEPPED)):
             raise AssertionError(f"run(): {steps} steps, launches {counts}, expected {want}")
         if not all(math.isfinite(v) for v in result.test.values()):
             raise AssertionError(f"run(): test_model {result.test}")
@@ -2017,8 +1959,8 @@ def microbatch_phase(model, ctx, smi):
             f"{json.dumps(mb)}; all counts {json.dumps(counts)}")
         if not mb["decode_calls"] < mb["decode_requests"] == 80:
             raise AssertionError(f"the decode batcher did not coalesce: {mb}")
-        if (counts["launches"] != 7 * (calls["encode"] + calls["decode"])
-                or not only(counts, "launches", "kernel_applies")):
+        if (counts["band_apply.conv"] != 7 * (calls["encode"] + calls["decode"])
+                or not only(counts, *SERVED)):
             raise AssertionError(f"{counts} for {calls}: expected 7 band_apply launches per "
                                  "encode/decode device call and no other kernel")
         if calls["decode"] != mb["decode_calls"] or calls["encode"] != mb["encode_calls"]:
@@ -2072,7 +2014,7 @@ def microbatch_phase(model, ctx, smi):
                 f"{timing[mode]['wall_s']:.3f} s for 80 requests, device lock busy "
                 f"{timing[mode]['busy_share']:.1%} (median of 3 rounds; "
                 f"rounds {json.dumps(rounds)})")
-        return counts["launches"], timing
+        return counts["band_apply.conv"], timing
     finally:
         stop_server(httpd, thread)
         stop_server(ref_httpd, ref_thread)
@@ -2125,14 +2067,14 @@ def demo_phase(smi):
             torch.cuda.synchronize()
             seconds[mode] = time.perf_counter() - t0
             counts, calls = read_counts(), dict(result.demos.engine.calls)
-            per_call = counts["launches"] / max(1, calls["encode"] + calls["decode"])
+            per_call = counts["band_apply.conv"] / max(1, calls["encode"] + calls["decode"])
             log(f"--mode {mode} [{smi}]: {seconds[mode]:.3f} s (host clock, restore included), "
-                f"device calls {calls}, band_apply launches {counts['launches']} "
+                f"device calls {calls}, band_apply launches {counts['band_apply.conv']} "
                 f"({per_call:g} per encode/decode call); all counts {json.dumps(counts)}")
-            if (counts["launches"] != 7 * (calls["encode"] + calls["decode"])
-                    or not only(counts, "launches", "kernel_applies")):
+            if (counts["band_apply.conv"] != 7 * (calls["encode"] + calls["decode"])
+                    or not only(counts, *SERVED)):
                 raise AssertionError(f"--mode {mode}: {counts} for {calls}")
-            launches += counts["launches"]
+            launches += counts["band_apply.conv"]
             results[mode] = result
         got = results["test"].test
         held_metrics("test_model vs JAX golden",
@@ -2185,11 +2127,11 @@ def served_launches(name, engine, counts, per_call: int) -> int:
     calls: exactly per_call per encode and decode call, no other kernel."""
     calls = dict(engine.calls)
     want = per_call * (calls["encode"] + calls["decode"])
-    log(f"{name}: device calls {calls}, band_apply launches {counts['launches']} "
+    log(f"{name}: device calls {calls}, band_apply launches {counts['band_apply.conv']} "
         f"(expected {want}); all counts {json.dumps(counts)}")
-    if counts["launches"] != want or not only(counts, "launches", "kernel_applies"):
+    if counts["band_apply.conv"] != want or not only(counts, *SERVED):
         raise AssertionError(f"{name}: {counts} for {calls}")
-    return counts["launches"]
+    return counts["band_apply.conv"]
 
 
 def cmr_serve(cfg, ctx, ctx_plain, golden, smi):
@@ -2329,7 +2271,7 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
         want = {"kernel": [(FWD_PER_STEP, BWD_PER_STEP)] * 2, "plain": [(0, 0)] * 2}.get(route)
         if want is not None and counts != want:
             raise AssertionError(f"CMR {route} steps: launches {counts}, expected {want}")
-        allowed = () if route == "plain" else ("launches", "bwd_launches", "kernel_applies")
+        allowed = () if route == "plain" else STEPPED
         if not only(total, *allowed):
             raise AssertionError(f"CMR {route} steps launched {total}")
         if route == "remat":
@@ -2339,8 +2281,8 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
                 f"beyond the {FWD_PER_STEP} of the steps without it (recomputed blocks)")
             if any(b != BWD_PER_STEP for _, b in counts) or min(extra) <= 0:
                 raise AssertionError(f"CMR remat steps: launches {counts}")
-        fwd += total["launches"]
-        bwd += total["bwd_launches"]
+        fwd += total["band_apply.conv"]
+        bwd += total["band_apply.conv_bwd"]
         runs[route] = (state, c, metrics, updates)
     for route in ("kernel", "plain"):
         hold_steps(f"CMR preset, {route} route", runs[route][2], runs[route][3], golden)
@@ -2386,10 +2328,10 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
         calls = dict(engine.calls)
         norm_launches(f"default_config.yaml {stage}", NORM_PER_DECODE * calls["decode"])
         log(f"default_config.yaml {stage}: device calls {calls}; all counts {json.dumps(counts)}")
-        if (counts["launches"] != per_call * calls[stage]
-                or not only(counts, "launches", "kernel_applies")):
+        if (counts["band_apply.conv"] != per_call * calls[stage]
+                or not only(counts, *SERVED)):
             raise AssertionError(f"default_config.yaml {stage}: {counts} for {calls}")
-        fwd += counts["launches"]
+        fwd += counts["band_apply.conv"]
     held_to("default_config.yaml vs JAX golden (encode z_mean)", z_mean, golden["z_mean"])
     held_to("default_config.yaml vs JAX golden (encode z_logvar)", z_logvar, golden["z_logvar"])
     check_mesh("default_config.yaml golden decode", disp, 32)
@@ -2403,10 +2345,10 @@ def families_phase(flagship_cfg, flagship_ctx, smi):
     norm_launches("default_config.yaml train steps", NORM_PER_STEP * len(counts))
     log(f"default_config.yaml train steps: band_apply launches (forward, backward) per step "
         f"{counts}; all counts {json.dumps(total)}")
-    if counts != [(25, 25)] * 2 or not only(total, "launches", "kernel_applies", "bwd_launches"):
+    if counts != [(25, 25)] * 2 or not only(total, *STEPPED):
         raise AssertionError(f"default_config.yaml steps: launches {counts}, expected 25 + 25")
-    fwd += total["launches"]
-    bwd += total["bwd_launches"]
+    fwd += total["band_apply.conv"]
+    bwd += total["band_apply.conv_bwd"]
     # the plain route, and its one-ulp spread: step 2's generator gradient
     # is what is left of a step-1 gradient 5e4 times larger (losses 2.6e10,
     # KL 3.2e13 from seed-0 parameters), so its norm, and through the clip
@@ -2559,9 +2501,10 @@ def resume_phase(cfg, smi) -> tuple[dict, dict]:
                     BWD_PER_STEP * steps)
             log(f"resume, {label} run(): {time.perf_counter() - t0:.2f} s, {steps} steps to step "
                 f"{result.trainer.state.step}, DemoSuite calls {calls}; counts {json.dumps(c)}")
-            if ((c["launches"], c["bwd_launches"]) != want
-                    or c["bf16_launches"] != half_launches(c, c["launches"] + c["bwd_launches"])
-                    or not only(c, "launches", "kernel_applies", "bwd_launches", "bf16_launches")):
+            if ((c["band_apply.conv"], c["band_apply.conv_bwd"]) != want
+                    or c["band_apply.bfloat16"]
+                    != half_launches(c, c["band_apply.conv"] + c["band_apply.conv_bwd"])
+                    or not only(c, *STEPPED, "band_apply.bfloat16")):
                 raise AssertionError(f"resume {label}: counts {c}, expected {want}, all bf16")
         whole, split = trainers["whole"], trainers["resumed"]
         a, b = latest_checkpoint(whole.ckpt_dir), latest_checkpoint(split.ckpt_dir)
@@ -2661,14 +2604,14 @@ def train_prod_phase(cfg, ctx, smi):
             f"{json.dumps(total)}; steps' peak memory {peak_mb:.3f} MiB above the "
             f"{mem0 / 2**20:.3f} allocated before, optimizer state {state_mb:.3f} MiB "
             f"({sorted({_name(t.dtype) for t in moments})})")
-        if counts != [per_step] * 2 or total["bf16_launches"] != half_launches(total,
+        if counts != [per_step] * 2 or total["band_apply.bfloat16"] != half_launches(total,
                                                                                2 * sum(per_step)):
             raise AssertionError(f"{label}: launches {counts} ({total}), expected {per_step} "
                                  "a step, all bf16")
-        if not only(total, "launches", "kernel_applies", "bwd_launches", "bf16_launches"):
+        if not only(total, *STEPPED, "band_apply.bfloat16"):
             raise AssertionError(f"{label} launched {total}")
-        fwd += total["launches"]
-        bwd += total["bwd_launches"]
+        fwd += total["band_apply.conv"]
+        bwd += total["band_apply.conv_bwd"]
         hold_bf16(f"{label}", metrics, dtypes, updates, golden)
         runs[label] = (state, c, batches[0], eps[0], metrics, updates, routed)
         records[label] = {"launches_per_step": counts, "peak_mb": peak_mb, "state_mb": state_mb}
@@ -2699,8 +2642,8 @@ def train_prod_phase(cfg, ctx, smi):
 
     resume_counts, resume_found = resume_phase(bcfg, smi)
     for c in resume_counts.values():
-        fwd += c["launches"]
-        bwd += c["bwd_launches"]
+        fwd += c["band_apply.conv"]
+        bwd += c["band_apply.conv_bwd"]
 
     # ---- (e) step times: f32 at batch 16 beside the bf16 routes
     golden16 = bf16_view(gold, "b16")
@@ -3038,9 +2981,9 @@ def f16_flagship_phase(cfg, ctx, model, smi):
     disp = engine.decode(z_total, y, y2)
     decode_counts = read_counts()
     log(f"f16 decode: device calls {engine.calls}; counts {json.dumps(decode_counts)}")
-    if (decode_counts["launches"] != 7
-            or decode_counts["f16_launches"] != half_launches(decode_counts, 7)
-            or not only(decode_counts, "launches", "kernel_applies", "f16_launches")):
+    if (decode_counts["band_apply.conv"] != 7
+            or decode_counts["band_apply.float16"] != half_launches(decode_counts, 7)
+            or not only(decode_counts, *SERVED, "band_apply.float16")):
         raise AssertionError(f"f16 decode: counts {decode_counts}, expected 7 f16 launches")
     check_mesh("f16 decode", disp, 32)
     ref = gold["decode:disp"]
@@ -3062,8 +3005,9 @@ def f16_flagship_phase(cfg, ctx, model, smi):
     log(f"f16 steps: band_apply launches (forward, backward) per step {counts}; all counts "
         f"{json.dumps(total)}")
     if (counts != [(FWD_PER_STEP, BWD_PER_STEP)] * 2
-            or total["f16_launches"] != half_launches(total, 2 * (FWD_PER_STEP + BWD_PER_STEP))
-            or not only(total, "launches", "kernel_applies", "bwd_launches", "f16_launches")):
+            or total["band_apply.float16"]
+            != half_launches(total, 2 * (FWD_PER_STEP + BWD_PER_STEP))
+            or not only(total, *STEPPED, "band_apply.float16")):
         raise AssertionError(f"f16 steps: launches {counts} ({total}), expected 17 + 17 a "
                              "step, all f16")
     hold_bf16("f16 b32 kernel", metrics, dtypes, updates, golden, what="JAX f16 golden")
@@ -3084,8 +3028,8 @@ def f16_flagship_phase(cfg, ctx, model, smi):
     for d in decode_ms:
         log(f"flagship batch 32, kernel route, {d} [{smi}]: decode call {decode_ms[d]:.3f} ms, "
             f"train step {step_ms[d]:.3f} ms (CUDA events, dtypes in turns)")
-    fwd = decode_counts["launches"] + total["launches"]
-    return fwd, total["bwd_launches"], {"decode_ms": decode_ms, "step_ms": step_ms}
+    fwd = decode_counts["band_apply.conv"] + total["band_apply.conv"]
+    return fwd, total["band_apply.conv_bwd"], {"decode_ms": decode_ms, "step_ms": step_ms}
 
 
 def dp_inputs(cfg, perm):
@@ -3255,14 +3199,14 @@ def dp_train_phase(cfg, ctx, smi):
     names = [str(k) for k in ranks[0]["metric_names"]]
     fwd = bwd = 0
     for r, rec in enumerate(ranks):
-        c = json.loads(str(rec["counts"]))
+        c = collections.Counter(json.loads(str(rec["counts"])))
         log(f"DP rank {r} of {DP_RANKS} (Gloo, one card), 2 steps at {DP_BATCH // DP_RANKS} rows: "
             f"counts {json.dumps(c)}")
-        if ((c["launches"], c["bwd_launches"]) != (2 * FWD_PER_STEP, 2 * BWD_PER_STEP)
-                or not only(c, "launches", "kernel_applies", "bwd_launches")):
+        if ((c["band_apply.conv"], c["band_apply.conv_bwd"]) != (2 * FWD_PER_STEP, 2 * BWD_PER_STEP)
+                or not only(c, *STEPPED)):
             raise AssertionError(f"DP rank {r}: counts {c}, expected 17 + 17 a step")
-        fwd += c["launches"]
-        bwd += c["bwd_launches"]
+        fwd += c["band_apply.conv"]
+        bwd += c["band_apply.conv_bwd"]
         if not np.array_equal(rec["metrics"], ranks[0]["metrics"]):
             raise AssertionError("DP ranks report different reduced metrics")
     for i in range(2):
@@ -3337,11 +3281,11 @@ def nccl_phase(cfg, ctx, mesh: bool = False):
             or bool(n_sharded) != mesh or len(saved) != 1
             or not all(math.isfinite(v) for v in val)):
         raise AssertionError(f"{name}: the Trainer did not run")
-    if ((counts["launches"], counts["bwd_launches"]) != (FWD_PER_STEP + FWD_PER_EVAL,
+    if ((counts["band_apply.conv"], counts["band_apply.conv_bwd"]) != (FWD_PER_STEP + FWD_PER_EVAL,
                                                          BWD_PER_STEP)
-            or not only(counts, "launches", "kernel_applies", "bwd_launches")):
+            or not only(counts, *STEPPED)):
         raise AssertionError(f"{name}: counts {counts}")
-    return counts["launches"], counts["bwd_launches"]
+    return counts["band_apply.conv"], counts["band_apply.conv_bwd"]
 
 
 def dp_engine_phase(model, ctx):
@@ -3369,12 +3313,12 @@ def dp_engine_phase(model, ctx):
     counts = read_counts()
     log(f"DP engine over [cuda:0, cuda:0]: device calls {engine.calls}; counts "
         f"{json.dumps(counts)}")
-    if (engine.calls["decode"] != 2 or counts["launches"] != 14
-            or not only(counts, "launches", "kernel_applies")):
+    if (engine.calls["decode"] != 2 or counts["band_apply.conv"] != 14
+            or not only(counts, *SERVED)):
         raise AssertionError(f"DP engine: calls {engine.calls}, counts {counts}")
     check_mesh("DP engine decode", disp, 64)
     held_to("DP engine (2 x 32 rows) vs the single-device engine (64 rows)", disp, ref, rel=1e-5)
-    return counts["launches"]
+    return counts["band_apply.conv"]
 
 
 def f16_dp_phase(cfg, ctx, model, smi):
@@ -3579,22 +3523,23 @@ def tp_mesh_run(dp: int, tp: int, inputs: str, params: dict, cfg, ref, smi) -> d
     fwd = bwd = 0
     per_rank = []
     for r, rec in enumerate(ranks):
-        counts, routes = json.loads(str(rec["counts"])), json.loads(str(rec["routes"]))
+        counts = [collections.Counter(c) for c in json.loads(str(rec["counts"]))]
+        routes = json.loads(str(rec["routes"]))
         want = tp_routes(params, cfg, B, tp, r % tp)
         log(f"{name} rank {r} at {[int(v) for v in rec['coords']]} (Gloo, one card), {B} rows, "
             f"{int(rec['n_sharded'])} of {int(rec['n_leaves'])} leaves sharded: launches a "
-            f"step {[(c['launches'], c['bwd_launches']) for c in counts]}, v3 convs (B, C, F) "
-            f"{routes[0]}")
+            f"step {[(c['band_apply.conv'], c['band_apply.conv_bwd']) for c in counts]}, v3 convs "
+            f"(B, C, F) {routes[0]}")
         for step, (c, got) in enumerate(zip(counts, routes)):
             if [tuple(v) for v in got] != want:
                 raise AssertionError(f"{name} rank {r} step {step + 1}: v3 convs {got}, the gate "
                                      f"gives {want}")
-            if (c["launches"], c["bwd_launches"]) != (len(want), len(want)) or not only(
-                    c, "launches", "kernel_applies", "bwd_launches"):
+            if ((c["band_apply.conv"], c["band_apply.conv_bwd"]) != (len(want), len(want))
+                    or not only(c, *STEPPED)):
                 raise AssertionError(f"{name} rank {r} step {step + 1}: counts {c}, expected "
                                      f"{len(want)} + {len(want)}")
-            fwd += c["launches"]
-            bwd += c["bwd_launches"]
+            fwd += c["band_apply.conv"]
+            bwd += c["band_apply.conv_bwd"]
         per_rank.append(len(want))
         if not np.array_equal(rec["metrics"], ranks[0]["metrics"]):
             raise AssertionError(f"{name}: ranks report different reduced metrics")
@@ -3735,7 +3680,7 @@ def random_phase(cfg, ctx, smi) -> tuple[int, int, dict]:
                                                        dtype)).to(tdt)
             got = torch.stack([e.cpu() for e in seen]) if seen else None
             exp = (FWD_PER_STEP * steps + FWD_PER_EVAL, BWD_PER_STEP * steps)
-            ok_half = dtype == "float32" or counts["bf16_launches"] == half_launches(counts,
+            ok_half = dtype == "float32" or counts["band_apply.bfloat16"] == half_launches(counts,
                                                                                      sum(exp))
             log(f"random (b) Trainer.fit {dtype}: {steps} steps and one val batch in "
                 f"{fit_s:.2f} s [{smi}], val recon {val}; eps of {len(seen)} steps "
@@ -3743,13 +3688,12 @@ def random_phase(cfg, ctx, smi) -> tuple[int, int, dict]:
                 f" to core.prng's {dtype} draw; counts {json.dumps(counts)}")
             if steps != 2 or got is None or got.dtype != tdt or not torch.equal(got, want):
                 raise AssertionError(f"random fit {dtype}: the steps' eps are not JAX's")
-            if ((counts["launches"], counts["bwd_launches"]) != exp or not ok_half
-                    or not only(counts, "launches", "kernel_applies", "bwd_launches",
-                                "bf16_launches")):
+            if ((counts["band_apply.conv"], counts["band_apply.conv_bwd"]) != exp or not ok_half
+                    or not only(counts, *STEPPED, "band_apply.bfloat16")):
                 raise AssertionError(f"random fit {dtype}: counts {counts}, expected {exp}")
             if not all(math.isfinite(v) for v in val):
                 raise AssertionError(f"random fit {dtype}: val recon {val}")
-            fwd, bwd = fwd + counts["launches"], bwd + counts["bwd_launches"]
+            fwd, bwd = fwd + counts["band_apply.conv"], bwd + counts["band_apply.conv_bwd"]
             rec[f"fit_{dtype}"] = {"s": fit_s, "val_recon": val, "counts": counts}
     finally:
         loop.train_step = train_step
@@ -3778,12 +3722,12 @@ def random_phase(cfg, ctx, smi) -> tuple[int, int, dict]:
     n_launch = 7 * (calls["encode"] + calls["decode"])
     if not equal or calls["sample"] != 1:
         raise AssertionError("random: the engine's sampled eps are not JAX's bf16 draw")
-    if (counts["launches"] != n_launch
-            or counts["bf16_launches"] != half_launches(counts, n_launch)
-            or not only(counts, "launches", "kernel_applies", "bf16_launches")):
+    if (counts["band_apply.conv"] != n_launch
+            or counts["band_apply.bfloat16"] != half_launches(counts, n_launch)
+            or not only(counts, *SERVED, "band_apply.bfloat16")):
         raise AssertionError(f"random autoencode: counts {counts}, expected {n_launch}")
     check_mesh("bf16 sampled autoencode", out, 32)
-    fwd += counts["launches"]
+    fwd += counts["band_apply.conv"]
     rec["autoencode_s"] = ae_s
     log(f"random phase: {time.perf_counter() - t_phase:.2f} s [{smi}]")
     return fwd, bwd, rec
@@ -3840,7 +3784,7 @@ def main():
     served = requests(client, pose, clo)
     stats = client.stats()
     serve_counts = read_counts()
-    launches = serve_counts["launches"]
+    launches = serve_counts["band_apply.conv"]
     calls = dict(engine.calls)
     log(f"main path: {time.perf_counter() - t0:.2f} s, device calls {calls}, "
         f"band_apply launches {launches}; all counts {json.dumps(serve_counts)}")
@@ -3852,7 +3796,7 @@ def main():
     if calls["decode"] != 4 or calls["encode"] != 2:
         raise AssertionError(f"expected 4 decode and 2 encode device calls, got {calls}")
     if (launches != 7 * (calls["decode"] + calls["encode"])
-            or not only(serve_counts, "launches", "kernel_applies")):
+            or not only(serve_counts, *SERVED)):
         raise AssertionError(f"{serve_counts} launches for {calls}: expected 7 band_apply per "
                              "decode/encode call and no other kernel")
 
@@ -3999,7 +3943,7 @@ def main():
 
     summary += [{
         "name": "cheb2_fused (group 1)", "route": "cuda", "source": FUSED_SOURCE,
-        "replaces": REPLACES_V1, "launches": lab_counts["cheb2_fused_g1"],
+        "replaces": REPLACES_V1, "launches": lab_counts["cheb2_fused.g1"],
         "max_abs_err": fused_err(True),
         "ms": sum(r["g1_ms"] for r in fused_t), "plain_ms": sum(r["plain_ms"] for r in fused_t),
         **summed_bound(fused_t), "library_ms": None, "v3_ms": fused_v3_ms,

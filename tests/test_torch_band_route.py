@@ -17,6 +17,7 @@ and skip without a CUDA card:
 This file imports no JAX, so that it runs on the card's machine, where
 `--noconftest` leaves out tests/conftest.py (it imports JAX)."""
 
+import collections
 import dataclasses
 import inspect
 import os
@@ -148,6 +149,33 @@ def test_on_kernel_decides_from_device_dtype_pack_and_config(contexts, monkeypat
     assert on_kernel(x, op) is want
 
 
+@pytest.mark.parametrize("env", [None, "0", "1"], ids=["unset", "0", "1"])
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["use_pallas=1", "use_pallas=0"])
+def test_one_predicate_decides_both_kernel_routes(contexts, monkeypatch, env, use_pallas):
+    """kernels.allowed is CAPE_TPU_PALLAS where it is set, else the op's
+    use_pallas; on_kernel (the plain BandedOp applies) and the conv gate of
+    ops.cheb (a batch-32 K=2 conv on `meta`, counted in route.v3) both
+    follow it."""
+    from cape_tpu_torch.ops import kernels
+    from cape_tpu_torch.ops.banded import on_kernel
+    from cape_tpu_torch.ops.cheb import cheb_conv
+
+    if env is None:
+        monkeypatch.delenv("CAPE_TPU_PALLAS", raising=False)
+    else:
+        monkeypatch.setenv("CAPE_TPU_PALLAS", env)
+    want = use_pallas if env is None else env == "1"
+    assert kernels.allowed(use_pallas) is want
+    op = dataclasses.replace(contexts["padded"]["lap[3]"], allow_pallas=use_pallas)
+    assert on_kernel(_stand_in(), op) is want
+    op = op.to("meta")
+    routes = kernels.counts["route.v3"]
+    y = cheb_conv(torch.empty((32, op.rows_in, 64), device="meta"), op,
+                  torch.empty((2, 64, 8), device="meta"))
+    assert y.shape == (32, op.rows_out, 8)
+    assert kernels.counts["route.v3"] - routes == int(want)
+
+
 @pytest.fixture
 def refuse_band_apply(monkeypatch):
     """band_apply replaced by a stand-in that fails the test if called."""
@@ -160,11 +188,10 @@ def refuse_band_apply(monkeypatch):
 
 
 def _counts():
-    from cape_tpu_torch.ops import banded
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops.kernels import counts
 
-    return (banded.kernel_applies, cheb_kernel.launches, cheb_kernel.bwd_launches,
-            cheb_kernel.bf16_launches, cheb_kernel.f16_launches)
+    return tuple(counts[k] for k in ("band_apply.op", "band_apply.conv", "band_apply.conv_bwd",
+                                     "band_apply.bfloat16", "band_apply.float16"))
 
 
 @pytest.mark.parametrize("case", ["cpu", "meta", "use_pallas=0", "CAPE_TPU_PALLAS=0"])
@@ -195,13 +222,13 @@ def test_banded_matvec_stays_plain_off_the_card(contexts, refuse_band_apply, mon
 
 
 def test_band_apply_keeps_the_signature_the_launch_recorder_wraps():
-    from cape_tpu_torch.ops.banded import KERNEL_DTYPES
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.ops.kernels import cheb_kernel
 
     params = inspect.signature(cheb_kernel.band_apply).parameters
     assert list(params) == ["x", "blocks", "pad_left", "rows_out", "addend", "pack"]
     assert params["addend"].default is None and params["pack"].default is None
-    assert set(KERNEL_DTYPES) == set(cheb_kernel._DTYPE_CODES)
+    assert set(kernels.DTYPE_CODES) == {torch.float32, torch.bfloat16, torch.float16}
 
 
 @pytest.fixture
@@ -233,8 +260,8 @@ def routed(monkeypatch):
 def test_the_kernel_route_launches_once_per_apply_through_band_apply(contexts, routed, layout):
     """On the route, each apply of every op is one band_apply call of
     x [B, rows, C] (the 2-D input as [1, rows, C]) over op.pack forward and
-    op.t_pack backward, equal to apply_blocks, counted in kernel_applies
-    and not in the conv route's counters."""
+    op.t_pack backward, equal to apply_blocks, counted in band_apply.op
+    and not in the conv route's keys."""
     rng = np.random.default_rng(22)
     k0, *rest = _counts()
     n = 0
@@ -260,13 +287,13 @@ def test_the_kernel_route_launches_once_per_apply_through_band_apply(contexts, r
 def test_a_train_step_sends_every_plain_apply_through_band_apply(preset, routed):
     """A full-width train step on `meta`, the route taken: the wrapper sees
     every plain apply (120 a flagship step at batch 32, 137 a CMR step at
-    16), each counted in kernel_applies, beside the conv route's 17 + 17
-    calls on the flagship, which keep their own counters (they count only
-    on the card)."""
+    16), each counted in band_apply.op, beside the conv route's 17 + 17
+    calls on the flagship, which keep their own keys (they count only on
+    the card)."""
     from cape_tpu_torch.apps.main import build_context
     from cape_tpu_torch.core.config import load_config
     from cape_tpu_torch.models.cape import CAPE
-    from cape_tpu_torch.ops import cheb
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.train.step import gan_losses
 
     path, B, applies = STEP_APPLIES[preset]
@@ -278,7 +305,7 @@ def test_a_train_step_sends_every_plain_apply_through_band_apply(preset, routed)
     batch = {f"{k}_{p}": m(B, *s) for p in "gd"
              for k, s in (("disp", (6890, 3)), ("pose", (cfg.cond_dim,)), ("clo", (cfg.cond2_dim,)))}
     k0, *rest = _counts()
-    routes = cheb.kernel_routes
+    routes = kernels.counts["route.v3"]
     params = list(model.parameters())
     total, _ = gan_losses(model, cfg, ctx, batch, m(B, cfg.nz))
     torch.autograd.grad(total, params, allow_unused=True)
@@ -286,26 +313,39 @@ def test_a_train_step_sends_every_plain_apply_through_band_apply(preset, routed)
     assert len(routed) == applies + 2 * conv
     assert all(len(shape) == 3 for shape, *_ in routed)
     assert _counts() == (k0 + applies, *rest)
-    assert cheb.kernel_routes - routes == conv
+    assert kernels.counts["route.v3"] - routes == conv
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card: what the conv route's
+    launch counts read of x, for a device this machine may lack."""
+
+    is_cuda = True
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu", "meta"])
-def test_the_conv_route_counts_its_launches_on_the_card_only(monkeypatch, device):
-    """cheb_kernel._conv_launch, which the conv route's band applies pass
-    their result through: a launch (y on the card) counts in `launches`,
-    or for cheb2_banded_v3's backward in `bwd_launches`; the plain
-    versions' results on the CPU and `meta` count nowhere."""
-    from cape_tpu_torch.ops import banded
+def test_the_conv_route_counts_its_launches_on_the_card_only(contexts, device):
+    """cheb2_banded_v3 through autograd: its forward band apply of x on the
+    card counts in `band_apply.conv`, its backward's in
+    `band_apply.conv_bwd`; the plain versions on the CPU and `meta` count
+    nowhere, and no other key moves."""
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.ops.kernels import cheb_kernel
 
-    for k in ("launches", "bwd_launches"):
-        monkeypatch.setattr(cheb_kernel, k, 0)
-    k0, *rest = _counts()
-    y = _stand_in(device)
-    assert cheb_kernel._conv_launch(y) is y
-    assert cheb_kernel._conv_launch(y, backward=True) is y
+    op = contexts["padded"]["lap[3]"]
+    rng = np.random.default_rng(23)
+    x, g = _x(rng, op, False, 3, 2), _x(rng, op, True, 4, 2)
+    w = torch.from_numpy(rng.standard_normal((2, 3, 4)).astype(np.float32))
+    if device == "meta":
+        op, x, g, w = op.to("meta"), x.to("meta"), g.to("meta"), w.to("meta")
+    if device == "cuda":
+        x, g = x.as_subclass(_OnCard), g.as_subclass(_OnCard)
+    before = collections.Counter(kernels.counts)
+    x.requires_grad_()
+    torch.autograd.grad(cheb_kernel.cheb2_banded_v3(x, op, w), x, g)
     on = int(device == "cuda")
-    assert (cheb_kernel.launches, cheb_kernel.bwd_launches, banded.kernel_applies) == (on, on, k0)
+    assert kernels.counts - before == collections.Counter(
+        {"band_apply.conv": on, "band_apply.conv_bwd": on})
 
 
 # ------------------------------------------------------------------ on the card
@@ -330,7 +370,7 @@ ULP = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10
                          ids=["float32", "bfloat16", "float16"])
 def test_the_kernel_route_matches_plain_on_the_card(card, contexts, dtype):
     """BandedMatvec on the card, forward and backward, for every op and
-    layout: one kernel_applies each, equal to band_gather_plain over the
+    layout: one band_apply.op each, equal to band_gather_plain over the
     same pack within one ulp of the dtype, and in f32 to apply_blocks; no
     conv-route launch."""
     from cape_tpu_torch.ops.kernels.cheb_kernel import band_gather_plain
@@ -368,7 +408,7 @@ def test_the_kernel_route_matches_plain_on_the_card(card, contexts, dtype):
 def test_a_train_step_on_the_card_counts_both_routes(card, preset):
     """One train step at the cell's batch on the card: the conv route keeps
     its 17 + 17 launches on the flagship (none on the CMR preset at 16),
-    and every plain apply takes the kernel (`kernel_applies`)."""
+    and every plain apply takes the kernel (`band_apply.op`)."""
     from cape_tpu_torch.apps.main import build_context
     from cape_tpu_torch.core.config import load_config
     from cape_tpu_torch.models.cape import CAPE

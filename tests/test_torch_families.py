@@ -483,8 +483,7 @@ def test_res_cmr_matches_jax_on_kernel_route(contexts, monkeypatch, fold):
     its band-apply plain version): the same model outputs, 1e-4 * max|ref|,
     and as many convs on the route as the gate implies."""
     import cape_tpu.ops.cheb as jax_cheb
-    from cape_tpu_torch.ops import cheb
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops import cheb, kernels
 
     for mod in (jax_cheb, cheb):
         monkeypatch.setattr(mod, "VM_MIN_BATCH", B)
@@ -492,13 +491,13 @@ def test_res_cmr_matches_jax_on_kernel_route(contexts, monkeypatch, fold):
     kw = dict(FAMILIES["res_cmr"], fold_conditions=fold)
     jctx, ctx = contexts("banded", True)
     jmodel, jparams, model = _models(kw, jctx, ctx)
-    routes, launches = cheb.kernel_routes, cheb_kernel.launches
+    routes, launches = kernels.counts["route.v3"], kernels.counts["band_apply.conv"]
     _model_parity(jmodel, jparams, jctx, model, ctx, CAPEConfig(**kw))
     # generate, then encode and decode: 16 convs per encode (8 res blocks of two
     # K=2 convs), 9 per decode (8 CMR convs and the output conv);
     # discriminate: the pred conv (its layers have Kd=3)
-    assert cheb.kernel_routes - routes == 2 * (16 + 9) + 1
-    assert cheb_kernel.launches == launches
+    assert kernels.counts["route.v3"] - routes == 2 * (16 + 9) + 1
+    assert kernels.counts["band_apply.conv"] == launches
 
 
 @pytest.mark.parametrize("family", ["res_cmr", "affine_folded"])
@@ -507,7 +506,7 @@ def test_remat_gradients_equal_gradients_without_it(contexts, monkeypatch, famil
     loss and parameter gradients as remat=False, and recomputes: with the
     kernel route lowered to batch 4, the backward pass sends the
     checkpointed blocks' convs to the route again."""
-    from cape_tpu_torch.ops import cheb
+    from cape_tpu_torch.ops import cheb, kernels
 
     monkeypatch.setattr(cheb, "VM_MIN_BATCH", B)
     monkeypatch.setattr(cheb, "VM_MIN_COLS", B * 3)
@@ -524,9 +523,9 @@ def test_remat_gradients_equal_gradients_without_it(contexts, monkeypatch, famil
         d = model.discriminate(ctx, x_hat, y, y2)
         loss = x_hat.abs().mean() + zm.square().mean() + zl.mean() + d.mean()
         named = dict(model.named_parameters())
-        routes = cheb.kernel_routes
+        routes = kernels.counts["route.v3"]
         grads = torch.autograd.grad(loss, list(named.values()))
-        out[remat] = (loss.detach(), dict(zip(named, grads)), cheb.kernel_routes - routes)
+        out[remat] = (loss.detach(), dict(zip(named, grads)), kernels.counts["route.v3"] - routes)
     torch.testing.assert_close(out[True][0], out[False][0], rtol=0, atol=0)
     assert out[False][2] == 0 and out[True][2] > 0
     for k, g in out[False][1].items():
@@ -656,8 +655,7 @@ def test_full_width_kernel_routes(full_contexts, row):
     from cape_tpu.apps.main import build_context as jax_build_context
     from cape_tpu.core.config import load_config as jax_load_config
     from cape_tpu_torch.core.config import load_config
-    from cape_tpu_torch.ops import cheb
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops import kernels
 
     path, change, n_enc, n_dec, n_disc = ROUTING_ROWS[row]
     cfg = load_config(path, batch_size=32, **change)
@@ -666,15 +664,15 @@ def test_full_width_kernel_routes(full_contexts, row):
     m = lambda *s: torch.empty(s, device="meta")
     Bf = 32
     y, y2 = m(Bf, cfg.nz_cond), m(Bf, cfg.nz_cond2)
-    counts, launches = [], cheb_kernel.launches
+    counts, launches = [], kernels.counts["band_apply.conv"]
     for call in (lambda: model.encode(ctx, m(Bf, 6890, 3), y, y2),
                  lambda: model.decode(ctx, m(Bf, cfg.z_total_dim), y, y2),
                  lambda: model.discriminate(ctx, m(Bf, 6890, 3), y, y2)):
-        start = cheb.kernel_routes
+        start = kernels.counts["route.v3"]
         call()
-        counts.append(cheb.kernel_routes - start)
+        counts.append(kernels.counts["route.v3"] - start)
     assert counts == [n_enc, n_dec, n_disc]
-    assert cheb_kernel.launches == launches
+    assert kernels.counts["band_apply.conv"] == launches
 
     # JAX's gate at the same configuration (banded rows; ELL and dense
     # contexts route nothing by construction: only a BandedOp is eligible)

@@ -12,6 +12,7 @@ the context, and the wrappers refuse a launch without the pack of their
 blocks."""
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -317,17 +318,23 @@ def test_two_cpu_train_steps_build_no_pack(small_mesh, monkeypatch):
 
 
 def test_the_wrappers_refuse_a_launch_without_the_pack_of_their_blocks(toy):
-    """A launch needs the pack (the check every CUDA call makes first), and
-    a pack given for other blocks, or another pad_left, is refused on any
-    device (meta tensors here)."""
+    """A launch needs the pack, on x's device (the check every CUDA call
+    makes first), and a pack given for other blocks, or another pad_left,
+    is refused on any device (meta tensors here)."""
     from cape_tpu_torch.ops.kernels import cheb_kernel as ck
 
     _, _, ctx, _ = toy
     lap, down = ctx.lap[0].to("meta"), ctx.down[1].to("meta")
-    with pytest.raises(ValueError, match="needs the op's gather pack"):
-        ck._check_pack("band_apply", None, ctx.lap[0].blocks, ctx.lap[0].pad_left)
-    ck._check_pack("band_apply", lap.pack, lap.blocks, lap.pad_left)
     m = lambda *s: torch.empty(s, device="meta")
+    on_card = types.SimpleNamespace(device=torch.device("cuda"), is_cuda=True)
+    with pytest.raises(ValueError, match="needs the op's gather pack"):
+        ck._check_pack("band_apply", None, ctx.lap[0].blocks, ctx.lap[0].pad_left, on_card)
+    with pytest.raises(TypeError, match="the gather pack is on cpu, x on cuda"):
+        ck._check_pack("band_apply", ctx.lap[0].pack, ctx.lap[0].blocks, ctx.lap[0].pad_left,
+                       on_card)
+    with pytest.raises(ValueError, match="must be on cols' device"):
+        dataclasses.replace(ctx.lap[0].pack, vals=lap.pack.vals)
+    ck._check_pack("band_apply", lap.pack, lap.blocks, lap.pad_left, m(1))
     x = m(32, lap.n_rows, 64)
     with pytest.raises(ValueError, match="gather pack was built for"):
         ck.band_apply(x, lap.blocks, lap.pad_left, lap.n_rows, pack=ctx.lap[2].to("meta").pack)

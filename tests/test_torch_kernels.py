@@ -42,9 +42,10 @@ def toy(small_mesh):
 
 
 def _counts():
-    from cape_tpu_torch.ops.kernels import cheb_kernel as ck
+    from cape_tpu_torch.ops.kernels import counts
 
-    return (ck.launches, ck.bwd_launches, ck.fused1_launches, ck.fused_launches, ck.bm_launches)
+    return tuple(counts[k] for k in ("band_apply.conv", "band_apply.conv_bwd", "cheb2_fused.g1",
+                                     "cheb2_fused", "band_apply_bm"))
 
 
 def _close(got, want, name, rtol=RTOL):
@@ -270,13 +271,14 @@ def test_fused_plain_numerics_and_guards():
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """On a device with no kernel the wrappers raise; they never fall back
     (meta tensors take the plain version, which computes nothing)."""
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.ops.kernels import cheb_kernel as ck
 
     m = lambda *s: torch.empty(s, device="meta")
     assert ck.fused_cheb2(m(4, 300, 8), m(3, 3, 128, 128), 128, 300, m(8, 6), m(8, 6), 4).shape == (4, 300, 6)
     assert ck.banded_apply_bm(m(4, 258, 8), m(1, 2, 128, 256), 0, 254, 129).shape == (4, 129, 8)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ck._check_cuda("fused_cheb2", torch.zeros(2))
+        kernels.check_cuda("fused_cheb2", torch.zeros(2))
 
 
 # ---------------------------------------------------------------- routing
@@ -377,7 +379,7 @@ def test_default_routing_of_the_flagship_is_unchanged(monkeypatch, B):
     from cape_tpu_torch.apps.main import build_context
     from cape_tpu_torch.core.config import load_config
     from cape_tpu_torch.models.cape import CAPE
-    from cape_tpu_torch.ops import cheb, kernels
+    from cape_tpu_torch.ops import kernels
 
     monkeypatch.delenv("CAPE_TPU_PALLAS", raising=False)
     monkeypatch.setattr(kernels, "_enabled", False)
@@ -388,10 +390,10 @@ def test_default_routing_of_the_flagship_is_unchanged(monkeypatch, B):
     ctx = ctx.to("meta")
     m = lambda *s: torch.empty(s, device="meta")
     y, y2 = m(B, cfg.nz_cond), m(B, cfg.nz_cond2)
-    before, v3, counts = cheb.v2_routes, cheb.kernel_routes, _counts()
+    before, v3, counts = kernels.counts["route.v2"], kernels.counts["route.v3"], _counts()
     model.decode(ctx, m(B, cfg.z_total_dim), y, y2)
     model.encode(ctx, m(B, 6890, 3), y, y2)
     model.discriminate(ctx, m(B, 6890, 3), y, y2)
-    assert cheb.v2_routes == before
-    assert cheb.kernel_routes - v3 == (15 if B == 32 else 0)
+    assert kernels.counts["route.v2"] == before
+    assert kernels.counts["route.v3"] - v3 == (15 if B == 32 else 0)
     assert _counts() == counts

@@ -124,7 +124,7 @@ def test_model_matches_jax_on_kernel_route(small_mesh, pyramids, monkeypatch, co
     band-apply plain version). Tolerance 1e-4 * max|ref|."""
     import cape_tpu.ops.cheb as jax_cheb
     from cape_tpu_torch.ops import cheb
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops import kernels
 
     B = 4
     for mod in (jax_cheb, cheb):
@@ -154,15 +154,15 @@ def test_model_matches_jax_on_kernel_route(small_mesh, pyramids, monkeypatch, co
 
     want = [np.asarray(a) for a in forward(jparams, jctx, x, pose, clo, eps)]
 
-    routes, launches = cheb.kernel_routes, cheb_kernel.launches
+    routes, launches = kernels.counts["route.v3"], kernels.counts["band_apply.conv"]
     t = torch.from_numpy
     with torch.no_grad():
         ty, ty2 = model.embed_conditions(t(pose), t(clo))
         tzm, tzl = model.encode(ctx, t(x), ty, ty2)
         tz = model.sample_z(tzm, tzl, t(eps))
         tout = model.decode(ctx, torch.cat([tz, ty, ty2], -1), ty, ty2)
-    assert cheb.kernel_routes - routes == 17  # 8 encoder + 8 decoder + out conv
-    assert cheb_kernel.launches == launches
+    assert kernels.counts["route.v3"] - routes == 17  # 8 encoder + 8 decoder + out conv
+    assert kernels.counts["band_apply.conv"] == launches
     for name, g, w in zip(("y", "y2", "z_mean", "z_logvar", "z", "out"),
                           (ty, ty2, tzm, tzl, tz, tout), want):
         assert tuple(g.shape) == w.shape, name

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from cape_tpu_torch.ops import norm
+from cape_tpu_torch.ops import kernels, norm
 from cape_tpu_torch.ops.norm import group_norm, group_norm_relu, norm_plan
 
 torch.set_num_threads(1)
@@ -86,12 +86,12 @@ def test_on_the_cpu_it_is_the_plain_version(V, n_valid, C, dtype):
     forward and dx, dgamma, dbeta, at C/G = 1, 3 and 17 and a C under 32
     (G = C), n_valid set, None and equal to V; no launch is counted."""
     x, gamma, beta, dy = _inputs(2, V, C, n_valid, seed=C + V, dtype=dtype)
-    before = norm.launches
+    before = kernels.counts["group_norm_relu"]
     got = _value_and_grads(group_norm_relu, x, gamma, beta, dy, n_valid=n_valid)
     want = _value_and_grads(_plain, x, gamma, beta, dy, n_valid=n_valid)
     for g, w, name in zip(got, want, ("y", "dx", "dgamma", "dbeta")):
         assert g.dtype == w.dtype and torch.equal(g, w), name
-    assert norm.launches == before
+    assert kernels.counts["group_norm_relu"] == before
 
 
 def test_on_the_cpu_non_finite_tails_stay_out_of_the_valid_rows():
@@ -297,10 +297,10 @@ def test_the_kernel_matches_plain_at_the_decoder_norms(card, dtype):
         for nv in (n_valid, None):
             x, gamma, beta, dy = _inputs(16, V, C, nv, seed=i, dtype=dtype, device=card)
             dy = _off_the_kink(x, gamma, beta, dy, nv)
-            before = norm.launches
+            before = kernels.counts["group_norm_relu"]
             got = _value_and_grads(group_norm_relu, x, gamma, beta, dy, n_valid=nv)
             torch.cuda.synchronize()
-            assert norm.launches - before == 3
+            assert kernels.counts["group_norm_relu"] - before == 3
             assert got[0].dtype == dtype and got[2].dtype == torch.float32
             _check(got, _reference(x, gamma, beta, dy, dtype, nv), dtype)
 
@@ -391,8 +391,8 @@ def test_a_train_step_counts_its_norm_launches(card, preset, B, launches):
     r = lambda *s: (0.01 * torch.randn(s, generator=gen)).to(card)
     batch = {f"{k}_{p}": r(B, *s) for p in "gd"
              for k, s in (("disp", (6890, 3)), ("pose", (cfg.cond_dim,)), ("clo", (cfg.cond2_dim,)))}
-    before = norm.launches
+    before = kernels.counts["group_norm_relu"]
     metrics, _ = train_step(state, ctx, batch, r(B, cfg.nz))
     torch.cuda.synchronize()
     assert all(torch.isfinite(v) for v in metrics.values())
-    assert norm.launches - before == launches
+    assert kernels.counts["group_norm_relu"] - before == launches

@@ -133,6 +133,7 @@ def test_cheb2_banded_v3_matches_jax_pallas(small_mesh, padded):
     against the JAX Pallas v3 kernel (interpret mode), on the icosphere."""
     from cape_tpu.ops.banded import banded_from_scipy as jax_banded
     from cape_tpu.ops.pallas.cheb_kernel import cheb2_banded_pallas_v3
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.ops.banded import banded_from_scipy
     from cape_tpu_torch.ops.kernels import cheb_kernel
 
@@ -144,9 +145,9 @@ def test_cheb2_banded_v3_matches_jax_pallas(small_mesh, padded):
     x = rng.standard_normal((3, rows, 5)).astype(np.float32)
     W = (rng.standard_normal((2, 5, 4)) * 0.1).astype(np.float32)
     want = np.asarray(cheb2_banded_pallas_v3(jnp.asarray(x), jop, jnp.asarray(W)))
-    before = cheb_kernel.launches
+    before = kernels.counts["band_apply.conv"]
     got = cheb_kernel.cheb2_banded_v3(torch.from_numpy(x), op, torch.from_numpy(W)).numpy()
-    assert cheb_kernel.launches == before  # CPU tensors take the plain version
+    assert kernels.counts["band_apply.conv"] == before  # CPU tensors take the plain version
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
@@ -262,23 +263,22 @@ def test_flagship_kernel_routes(flagship_ctx, flagship_meta, B, n_decode, n_enco
     """At full width, the port's gate sends as many convs per device call
     to the kernel as the JAX package sends to Pallas v3 (0/7/9 decode and
     0/7/7 encode at batch 16/32/64)."""
-    from cape_tpu_torch.ops import cheb
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops import kernels
 
     assert _jax_v3_calls(flagship_ctx, B) == (n_decode, n_encode)
     cfg, model, ctx = flagship_meta
     m = lambda *s: torch.empty(s, device="meta")
     y, y2 = m(B, cfg.nz_cond), m(B, cfg.nz_cond2)
-    launches = cheb_kernel.launches
-    start = cheb.kernel_routes
+    launches = kernels.counts["band_apply.conv"]
+    start = kernels.counts["route.v3"]
     out = model.decode(ctx, m(B, cfg.z_total_dim), y, y2)
     assert out.shape == (B, 6890, 3)
-    assert cheb.kernel_routes - start == n_decode
-    start = cheb.kernel_routes
+    assert kernels.counts["route.v3"] - start == n_decode
+    start = kernels.counts["route.v3"]
     zm, zl = model.encode(ctx, m(B, 6890, 3), y, y2)
     assert zm.shape == zl.shape == (B, cfg.nz)
-    assert cheb.kernel_routes - start == n_encode
-    assert cheb_kernel.launches == launches  # meta tensors launch nothing
+    assert kernels.counts["route.v3"] - start == n_encode
+    assert kernels.counts["band_apply.conv"] == launches  # meta tensors launch nothing
 
 
 def _torch_op(jop):
@@ -333,6 +333,7 @@ def test_cheb2_banded_v3_grads_match_jax_pallas(small_mesh, padded):
 
     from cape_tpu.ops.banded import banded_from_scipy as jax_banded
     from cape_tpu.ops.pallas.cheb_kernel import cheb2_banded_pallas_v3
+    from cape_tpu_torch.ops import kernels
     from cape_tpu_torch.ops.banded import banded_from_scipy
     from cape_tpu_torch.ops.kernels import cheb_kernel
 
@@ -350,10 +351,10 @@ def test_cheb2_banded_v3_grads_match_jax_pallas(small_mesh, padded):
     want = [np.asarray(a) for a in (y, *vjp(jnp.asarray(g)))]
     xt = torch.from_numpy(x).requires_grad_()
     wt = torch.from_numpy(W).requires_grad_()
-    before = (cheb_kernel.launches, cheb_kernel.bwd_launches)
+    before = (kernels.counts["band_apply.conv"], kernels.counts["band_apply.conv_bwd"])
     yt = cheb_kernel.cheb2_banded_v3(xt, op, wt)
     got = [yt, *torch.autograd.grad(yt, (xt, wt), torch.from_numpy(g))]
-    assert (cheb_kernel.launches, cheb_kernel.bwd_launches) == before  # CPU: plain version
+    assert (kernels.counts["band_apply.conv"], kernels.counts["band_apply.conv_bwd"]) == before  # CPU: plain version
     for name, a, b in zip(("y", "dx", "dW"), got, want):
         assert tuple(a.shape) == b.shape, name
         np.testing.assert_allclose(a.detach().numpy(), b, rtol=1e-5,

@@ -40,7 +40,7 @@ def test_subcommand_prints_its_lines(case, monkeypatch, capsys):
     for every route, and errors against the plain route within f32
     rounding (1e-5) or, in bf16, within the JAX lab's own 5e-2 check. CPU
     tensors launch no kernel."""
-    from cape_tpu_torch.ops.kernels import cheb_kernel as ck
+    from cape_tpu_torch.ops.kernels import counts
     from cape_tpu_torch.tools import perf_lab
 
     timed = []
@@ -53,9 +53,10 @@ def test_subcommand_prints_its_lines(case, monkeypatch, capsys):
 
     monkeypatch.setattr(perf_lab, "time_routes", stub)
     argv, keys, errs = CASES[case]
-    before = (ck.launches, ck.fused1_launches, ck.fused_launches, ck.bm_launches)
+    kernel_keys = ("band_apply.conv", "cheb2_fused.g1", "cheb2_fused", "band_apply_bm")
+    before = [counts[k] for k in kernel_keys]
     perf_lab.main(argv + SMALL)
-    assert (ck.launches, ck.fused1_launches, ck.fused_launches, ck.bm_launches) == before
+    assert [counts[k] for k in kernel_keys] == before
     lines = [json.loads(s) for s in capsys.readouterr().out.splitlines() if s.startswith("{")]
     tag = argv[0]
     dtypes = {"bmapply": ["bfloat16"], "fuse": ["float32"] * 4 + ["bfloat16"] * 4}.get(
@@ -200,7 +201,7 @@ def test_model_subcommand_prints_its_line(case, narrow, monkeypatch, capsys, tmp
     from cape_tpu_torch.apps.inference import InferenceEngine
     from cape_tpu_torch.models.cape import CAPE
     from cape_tpu_torch.ops import cheb
-    from cape_tpu_torch.ops.kernels import cheb_kernel as ck
+    from cape_tpu_torch.ops.kernels import counts as launched
     from cape_tpu_torch.tools import perf_lab
     from cape_tpu_torch.train import loop
 
@@ -214,9 +215,9 @@ def test_model_subcommand_prints_its_line(case, narrow, monkeypatch, capsys, tmp
     argv, keys, n_lines = MODEL_CASES[case]
     if case == "trace":
         argv = argv + ["--out", str(tmp_path)]
-    counts = (ck.launches, ck.bwd_launches)
+    counts = (launched["band_apply.conv"], launched["band_apply.conv_bwd"])
     result = perf_lab.main(argv + ["--device", "cpu"])
-    assert (ck.launches, ck.bwd_launches) == counts
+    assert (launched["band_apply.conv"], launched["band_apply.conv_bwd"]) == counts
     lines = _json_lines(capsys.readouterr().out)
     assert len(lines) == n_lines
     for line in lines:

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from cape_tpu_torch.ops import kernels
 from cape_tpu_torch.ops.banded import WINDOW_TILES
 from cape_tpu_torch.ops.kernels import cheb_kernel as ck
 from test_torch_fused import CONVS, FLAGSHIP_WIDTH, _covered_once
@@ -61,8 +62,9 @@ def toy(small_mesh):
 
 
 def _counts():
-    return (ck.launches, ck.bwd_launches, ck.fused1_launches, ck.fused_launches,
-            ck.bm_launches, ck.ring_launches, ck.ring2_launches)
+    return tuple(kernels.counts[k] for k in (
+        "band_apply.conv", "band_apply.conv_bwd", "cheb2_fused.g1", "cheb2_fused",
+        "band_apply_bm", "cheb2_window.t1", "cheb2_window.t2"))
 
 
 @pytest.mark.parametrize("padded", [False, True])
@@ -139,7 +141,7 @@ def test_ring_wrapper_refuses_what_the_kernel_does_not_take():
     and refuses on every device what the kernel does not take: a dtype other
     than float32 and bfloat16, a non-contiguous input, tiles other than 1
     and 2, a centre tile outside the window. A CPU tensor meets no
-    kernel (`_check_cuda`); meta tensors compute nothing."""
+    kernel (`kernels.check_cuda`); meta tensors compute nothing."""
     rng = np.random.default_rng(31)
     blocks = torch.from_numpy(rng.standard_normal((3, 2, 128, 128)).astype(np.float32) * 0.05)
     x = torch.from_numpy(rng.standard_normal((2, 200, 5)).astype(np.float32))
@@ -153,7 +155,7 @@ def test_ring_wrapper_refuses_what_the_kernel_does_not_take():
     m = lambda *s: torch.empty(s, device="meta")
     assert ck.ring_cheb2(m(4, 300, 8), m(3, 3, 128, 128), 128, 300, m(8, 6), m(8, 6), 2).shape == (4, 300, 6)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ck._check_cuda("ring_cheb2", x)
+        kernels.check_cuda("ring_cheb2", x)
     with pytest.raises(TypeError, match="float32, bfloat16"):
         ck.ring_cheb2(x.double(), blocks.double(), 128, 256, w0.double(), w1.double(), 1)
     with pytest.raises(TypeError, match=r"float16 \(kernel takes float32, bfloat16\)"):

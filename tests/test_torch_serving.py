@@ -113,13 +113,12 @@ def test_engine_matches_jax_engine(engines):
     """encode, decode (one condition row broadcast over 5 z) and the
     deterministic autoencode, in natural vertex order, 5 rows = 2 padded
     device calls. CPU tensors take the plain version: no kernel launch."""
-    from cape_tpu_torch.ops import cheb
-    from cape_tpu_torch.ops.kernels import cheb_kernel
+    from cape_tpu_torch.ops import kernels
 
     jeng, eng = engines
     nv = eng.ctx.level_sizes[0]
     disp, pose, clo = _inputs(5, nv, 1)
-    routes, launches = cheb.kernel_routes, cheb_kernel.launches
+    routes, launches = kernels.counts["route.v3"], kernels.counts["band_apply.conv"]
     got = eng.encode(disp, pose, clo)
     for name, g, w in zip(("z_mean", "z_logvar", "y", "y2"), got, jeng.encode(disp, pose, clo)):
         _close(g, np.asarray(w), name)
@@ -128,8 +127,8 @@ def test_engine_matches_jax_engine(engines):
     _close(eng.decode(zt, y, y2), jeng.decode(zt, y, y2), "decode")
     _close(eng.autoencode(disp, pose, clo), jeng.autoencode(disp, pose, clo), "autoencode")
     assert eng.calls["encode"] >= 4 and eng.calls["decode"] >= 4
-    assert cheb.kernel_routes > routes
-    assert cheb_kernel.launches == launches == 0
+    assert kernels.counts["route.v3"] > routes
+    assert kernels.counts["band_apply.conv"] == launches == 0
 
 
 def test_sampled_autoencode_is_seeded_and_batch_independent(engines):

@@ -102,7 +102,7 @@ def test_discriminate_matches_jax(setup, kernel_route):
     """discriminate's logits, and the gradients of a random projection of
     them with respect to x and every discriminator parameter, against JAX,
     f32, 1e-4 * max|ref|. The pred conv takes the kernel route here."""
-    from cape_tpu_torch.ops import cheb
+    from cape_tpu_torch.ops import kernels
 
     jctx, ctx, _ = setup
     cfg = CAPEConfig(**TINY)
@@ -121,9 +121,9 @@ def test_discriminate_matches_jax(setup, kernel_route):
     (_, want_d), (want_gp, want_gx) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
         params, jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_()
-    routes = cheb.kernel_routes
+    routes = kernels.counts["route.v3"]
     d = model.discriminate(ctx, xt, torch.from_numpy(y), torch.from_numpy(y2))
-    assert cheb.kernel_routes - routes == 1  # the pred conv
+    assert kernels.counts["route.v3"] - routes == 1  # the pred conv
     disc = dict(model.discriminator.named_parameters())
     grads = torch.autograd.grad((d * torch.from_numpy(w)).sum(), [xt, *disc.values()])
     got = {"d": d, "dx": grads[0]} | {f"d/{k}": g for k, g in zip(disc, grads[1:])}
