@@ -130,9 +130,15 @@ def engine(cfg: CAPEConfig, m: CAPE, ctx, device) -> InferenceEngine:
 
 class LaunchRecorder:
     """Records the shapes of each band-apply kernel launch while on:
-    wraps `cheb_kernel.band_apply`, the entry the v3 route calls, from
-    outside. A record: (blocks, pad_left, rows_out, B, rows_in, C, dtype,
-    addend)."""
+    wraps `cheb_kernel.band_apply`, the entry that the conv route and the
+    plain applies call, from outside. A record: (blocks, pad_left,
+    rows_out, B, rows_in, C, dtype, addend).
+
+    It sees the calls made while it is on, and a launch replayed from a
+    CUDA graph calls no Python: a train cell keeps it on over its set-up's
+    steps, whose launches (eager, or at a graph's capture) are whole
+    multiples of one step's, and off in the window and the profiled
+    stretch; the serve cell's child keeps it on over its profiled stretch."""
 
     def __init__(self):
         self.records: list[tuple] = []

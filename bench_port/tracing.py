@@ -134,10 +134,13 @@ def launch_bounds(records) -> list[dict]:
 
 
 def roofline_share(m: dict):
-    """Σ bound / Σ device time of the port's kernels in a profiled stretch
-    (`m`: trace_events, launch_bounds), in %, per launch on both sides,
-    so that a launch at the stretch's edge that one side missed moves
-    neither sum's mean. None without a port kernel in the stretch."""
+    """The mean bound of the recorded launches (`m["launch_bounds"]`) over
+    the mean device time of a launch of the port's kernels in a profiled
+    stretch (`m["trace_events"]`), in %. The records need not be the
+    stretch's own: any whole number of the same steps or calls has the
+    stretch's mean bound, and the trace holds a kernel's device time
+    however it was launched (eagerly, or replayed from a CUDA graph).
+    None without a port kernel in the stretch, or without a record."""
     from bench_port.trace_attr import PORT_KERNELS
 
     events, bounds = m.get("trace_events"), m.get("launch_bounds")

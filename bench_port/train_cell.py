@@ -13,7 +13,15 @@ chunk, synchronised.
 
 With --trace 1 the window is followed by a profiled stretch of the mix's
 `profile_steps` steps, which the per-layer readers and `breakdown` read;
-the window's own step time gives the *_mfu metrics.
+the window's own step time gives step_mfu.train. A cell whose end-to-end
+metrics name the device's time a step (`DEVICE_STEP`) profiles that
+stretch with --trace 0 too, and reads the metric from it: the union of
+the device's kernel and copy intervals over the stretch's steps. The
+shapes of the band applies, whose bounds `kernel_roofline.train` pairs
+with the stretch's kernel time, are recorded over the set-up's steps
+(`program.LaunchRecorder`): every step applies the same operators at the
+same shapes, and a step that a later program replays from a CUDA graph
+calls no Python entry to record.
 
 The check (`gaps`, limits in the mix's `limits`): the program's loss of each of the first three
 steps, its first gradient as the optimizer took it (the momentum trace
@@ -25,6 +33,7 @@ freed.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import math
 import os
@@ -44,6 +53,9 @@ CHECK_STEPS = 3
 # a leaf counts in delta_gap unless the reference's first gradient of it
 # is under this share of the median leaf's
 ROUNDOFF_SHARE = 1e-3
+# the end-to-end metric read from a profiled stretch after the window:
+# the device's busy time a step (the union of its kernels and copies)
+DEVICE_STEP = "train_device_ms_per_step"
 
 
 def batch_rows(n: int, batch: int, seed: int, k: int) -> np.ndarray:
@@ -174,9 +186,13 @@ def run(args, t0, bench, wl, cfgfile, mix, device=None):
     torch.backends.cudnn.allow_tf32 = False
     B, chunk = mix["batch_size"], mix["steps_per_dispatch"]
     mesh, raw_of = meshes(cfgfile, program_config(cfgfile, mix, args.seed, wl["name"]))
-    cfg, t, (sg, sd) = setup_program(cfgfile, mix, args.seed, wl["name"], device, mesh)
-    prog = first_steps(t, sg, sd)
-    program.run_chunk(t, chunk, sg, sd)        # warms every shape of the window
+    # --trace 1: the band applies' shapes over the set-up's steps alone; the
+    # window and the profiled stretch run without the wrapper
+    recorder = program.LaunchRecorder() if args.trace else contextlib.nullcontext()
+    with recorder:
+        cfg, t, (sg, sd) = setup_program(cfgfile, mix, args.seed, wl["name"], device, mesh)
+        prog = first_steps(t, sg, sd)
+        program.run_chunk(t, chunk, sg, sd)    # warms every shape of the window
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     sync()
     setup_s = time.perf_counter() - t0
@@ -190,16 +206,15 @@ def run(args, t0, bench, wl, cfgfile, mix, device=None):
 
     e2e, per = common.cell_metrics(bench, wl["name"])
     result = {"correct": False, "attempted": steps, "failed": 0}
-    breakdown = None
+    metrics = {"setup_s": setup_s, "train_samples_per_s": steps * B / window_s}
+    breakdown = events = None
+    if args.trace or DEVICE_STEP in {s["name"] for s in e2e}:
+        events = tracing.profile(lambda: program.run_chunk(t, mix["profile_steps"], sg, sd),
+                                 os.path.join(common.WORK_DIR, f"{wl['name']}.json"), sync)
+        metrics[DEVICE_STEP] = tracing.busy_us(events) / 1e3 / mix["profile_steps"]
     if args.trace:
-        m = {"kind": "train", "step_s": window_s / steps}
-        recorder = program.LaunchRecorder()
-
-        def stretch():
-            with recorder:
-                program.run_chunk(t, mix["profile_steps"], sg, sd)
-
-        events = tracing.profile(stretch, os.path.join(common.WORK_DIR, f"{wl['name']}.json"), sync)
+        m = {"kind": "train", "step_s": window_s / steps,
+             "window_samples_per_s": metrics["train_samples_per_s"]}
         m.update(trace_events=events, profiled_steps=mix["profile_steps"],
                  launch_bounds=tracing.launch_bounds(recorder.records))
         breakdown = tracing.breakdown(events)
@@ -226,7 +241,6 @@ def run(args, t0, bench, wl, cfgfile, mix, device=None):
         dev.update(tracing.device_fields(m["trace_events"]))
         result["breakdown"] = breakdown
     else:
-        metrics = {"setup_s": setup_s, "train_samples_per_s": steps * B / window_s}
         result["metrics"] = {s["name"]: {"value": metrics[s["name"]], "unit": s["unit"]}
                              for s in e2e}
     result["device"] = dev
